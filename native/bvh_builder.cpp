@@ -2,7 +2,7 @@
 //
 // The host-runtime half of the framework's ingest path (the analog of the
 // reference engine's native asset pipeline — its entire runtime is C++;
-// SURVEY.md section 2 requires the TPU build's runtime components to be
+// SURVEY.md section 2 asks for the framework's runtime components to be
 // native too).  Produces EXACTLY the layout of accel/bvh.py::build_bvh
 // (Morton-presorted largest-axis median splits, contiguous multi-triangle
 // leaves over a reordered triangle array) so the Python and C++ builders

@@ -1,18 +1,18 @@
-"""physically_based_renderer_tpu — a TPU-native differentiable path tracer.
+"""physically_based_renderer_tpu — a differentiable path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference Vulkan/C++ engine `WeaponizedSchizophrenia/physically-based-
 renderer` (glTF 2.0 ingest, metallic-roughness materials with textures and
 normal maps, HDR + ACES tonemapping, camera/scene-graph semantics),
 re-realized as a wavefront Monte-Carlo light-transport estimator that is
-end-to-end differentiable and shards across TPU pod slices.
+end-to-end differentiable and shards across a device mesh.
 
 Layer map (mirrors SURVEY.md section 7):
-    core/        math, camera, RNG, film, tonemap        (reference L2-L3)
+    core/        math, camera, RNG, film, tonemap, PNG   (reference L2-L3)
     scene/       glTF ingest -> flat SoA arenas, graph   (reference L5-L6)
     models/      BSDF / light / camera model families    (reference shaders)
-    ops/         Pallas + jnp compute kernels            (reference SPIR-V)
-    accel/       LBVH build + traversal
+    ops/         jnp + Pallas (Triton) compute kernels   (reference SPIR-V)
+    accel/       LBVH build + traversal, cluster grid
     integrator/  masked-wavefront path tracing           (reference L4 render)
     grad/        adjoint estimator, inverse rendering
     parallel/    mesh sharding, collectives, multi-host  (new; ref has none)
@@ -24,20 +24,18 @@ __version__ = "0.1.0"
 
 import os as _os
 
-# Persistent compilation cache: this environment compiles TPU programs
-# through a remote helper (~1-5 min for large Pallas+XLA graphs); caching
-# compiled executables across processes makes reruns start in seconds.
-# Opt out with PBR_TPU_NO_CACHE=1.
-if not _os.environ.get("PBR_TPU_NO_CACHE"):
-    import jax as _jax
+import jax as _jax
 
-    _cache_dir = _os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                 _os.path.expanduser("~/.pbr_tpu_jax_cache"))
-    try:
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:  # older jax without these options
-        pass
+# Persistent compilation cache.  JAX_COMPILATION_CACHE_DIR, when set, is
+# JAX's own setting and is left alone; otherwise the cache lives at a fixed
+# path inside the checkout (.jaxcache/, git-ignored), so every process run
+# from this checkout shares it.
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update(
+        "jax_compilation_cache_dir",
+        _os.path.join(_os.path.dirname(_os.path.dirname(
+            _os.path.abspath(__file__))), ".jaxcache"))
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 
 from .core.camera import Camera  # noqa: F401
 from .core.film import Film  # noqa: F401

@@ -11,7 +11,7 @@ both the XLA and the Pallas traversers want (one gather per leaf, coherent).
 The builder is numpy (ingest-time); accel/native.py swaps in the C++
 implementation when built, same layout.
 
-Device layout (flax pytree, replicated per chip like the rest of the scene):
+Device layout (pytree, replicated per chip like the rest of the scene):
   node_min/max  f32[N,3]   child AABBs
   node_left     i32[N]     >= 0: left child index; < 0: leaf, start = -x-1
   node_right    i32[N]     >= 0: right child index; for leaves: tri count
@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 LEAF_SIZE = 4
 MAX_DEPTH = 64

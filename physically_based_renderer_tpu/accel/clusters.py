@@ -1,19 +1,18 @@
-"""Cluster grid: the TPU-native acceleration structure.
+"""Cluster grid: the block tracer's acceleration structure.
 
-Per-ray BVH stack walks are hostile to a vector machine (divergent control
-flow + per-lane gathers — measured ~0.05M rays/s on a v5e via the XLA
-while_loop formulation in ops/traverse.py).  The TPU-native layout instead
-follows the ray-STREAM design (see PAPERS.md "ray stream tracing"; SURVEY.md
-section 5 long-context analog):
+Per-ray BVH stack walks turn into divergent control flow and per-lane
+gathers when written as masked array code (ops/traverse.py).  The cluster
+layout instead follows the ray-STREAM design (see PAPERS.md "ray stream
+tracing"; SURVEY.md section 5 long-context analog):
 
   * triangles are partitioned into C equal-capacity clusters (the spatially
     tight leaf ranges of the accel/bvh.py builder, padded to exactly K tris
-    with degenerate triangles), stored DENSE as f32[C, K, 3] blocks;
-  * phase A culls rays against all C cluster AABBs as one dense [N, C] slab
-    test — pure VPU elementwise work, zero gathers;
-  * phase B compacts surviving (ray, cluster) pairs into a fixed-capacity
-    stream and runs dense [P, K] Moller-Trumbore per chunk — every gather is
-    a CONTIGUOUS ~4.5 KB cluster row, the access pattern HBM likes.
+    with degenerate triangles), stored DENSE as an f32[C, 9, K] soup;
+  * phase A culls ray BLOCKS against the cluster AABBs with a conservative
+    interval slab test and keeps each block's nearest candidates;
+  * phase B intersects each block's rays with its candidates' triangles —
+    every read is a CONTIGUOUS cluster row (ops/blocktrace.py,
+    ops/pallas_trace.py).
 
 Scaling: work = sum over rays of (clusters pierced) x K, the same asymptotic
 as a BVH with K-sized leaves, but in a form that is all dense vector math
@@ -25,12 +24,11 @@ from __future__ import annotations
 import jax
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from .bvh import build_bvh
 
-CLUSTER_K = 128  # triangles per cluster (padded; 128 = TPU lane width,
-# and the Pallas kernel requires K to be a multiple of 128 for DMA tiling)
+CLUSTER_K = 128  # triangles per cluster (padded)
 
 
 @struct.dataclass
@@ -38,18 +36,16 @@ class ClusterGrid:
     aabb_min: jnp.ndarray  # f32[C, 3]
     aabb_max: jnp.ndarray  # f32[C, 3]
     tri_id: jnp.ndarray    # i32[C, K] original triangle ids (-1 = padding)
-    # Pre-packed DETACHED triangle soup for the Pallas kernel (built once on
-    # the host by pack_soup_host; +1 sentinel cluster).  Rebuilding these
-    # per trace call cost ~9 ms/query on the 100k-tri helmet.  Under vertex
-    # optimization they go stale — grad/inverse refreshes via refit.
-    soup: jnp.ndarray | None = None        # f32[C+1, 9, K]
-    tri_packed: jnp.ndarray | None = None  # i32[C+1, 1, K]
+    # Pre-packed DETACHED triangle soup (built once on the host by
+    # pack_soup_host) so trace calls do not re-gather it from the geometry.
+    # Under vertex optimization it goes stale — grad/inverse refreshes it
+    # via refit_clusters.
+    soup: jnp.ndarray | None = None        # f32[C, 9, K]
     # PARENT boxes over groups of 4 CONSECUTIVE clusters (BVH order makes
     # consecutive clusters spatial neighbors).  Phase A selects parents
     # with a 4x smaller slab/top_k and expands children arithmetically
-    # (ids 4p..4p+3) — the hierarchical candidate selection the k=32
-    # sub-cluster grid needs (top_k over 4096 sub-clusters was costing
-    # more than the finer candidates saved).
+    # (ids 4p..4p+3) — the hierarchical candidate selection for grids with
+    # many clusters, where a flat top_k over all of them dominates.
     parent_min: jnp.ndarray | None = None  # f32[ceil(C/4), 3]
     parent_max: jnp.ndarray | None = None  # f32[ceil(C/4), 3]
 
@@ -109,10 +105,9 @@ def _parent_boxes(amin, amax, xp=np):
             hi.reshape(npar, 4, 3).max(axis=1))
 
 
-def _soup_components(grid: ClusterGrid, positions, indices, xp):
-    """(v0, e1, e2) components [C, 9, K] with degenerate padding; xp is
+def _soup_components(tri_id, positions, indices, xp):
+    """(v0, e1, e2) component rows [C, 9, K] with degenerate padding; xp is
     numpy (ingest) or jnp (device refit)."""
-    tri_id = grid.tri_id if xp is jnp else np.asarray(grid.tri_id)
     safe = xp.maximum(tri_id, 0)
     tri = indices[safe]                                  # [C,K,3]
     v0 = positions[tri[..., 0]]
@@ -127,63 +122,23 @@ def _soup_components(grid: ClusterGrid, positions, indices, xp):
                            xp.moveaxis(e2, -1, 1)], axis=1)  # [C,9,K]
 
 
-def pack_soup32(grid: ClusterGrid, comp, xp):
-    """K=32 sub-cluster soup: f32[(C+1)*4, 16, 128] lane-group variants.
-
-    Mosaic only DMAs lane-aligned (128) slices, so a 32-tri sub-cluster
-    cannot be copied into an arbitrary 32-lane slot of the chunk buffer.
-    Instead each sub-cluster is stored FOUR times — variant p holds
-    component c at row c, lanes [32p, 32p+32), zeros elsewhere — and the
-    kernel DMAs variant i for chunk position i ([16,128] aligned tiles).
-    Chunk assembly is then 3 vector ADDS per component (zeros don't
-    collide), and every MT lane is a real candidate triangle: ~4x less
-    wasted intersection math than padding 32-tri clusters to 128 lanes.
-    Storage is 4x (32 KB/sub-cluster) — noise next to HBM.
-    """
-    c, k = comp.shape[0], comp.shape[2]
-    assert k == 32
-    comp16 = xp.concatenate(
-        [comp, xp.zeros((c, 7, k), xp.float32)], axis=1)     # [C,16,32]
-    rows = []
-    for p in range(4):
-        padded = xp.concatenate(
-            [xp.zeros((c, 16, 32 * p), xp.float32), comp16,
-             xp.zeros((c, 16, 32 * (3 - p)), xp.float32)],
-            axis=2)                                          # [C,16,128]
-        rows.append(padded)
-    soup = xp.stack(rows, axis=1).reshape(c * 4, 16, 128)
-    # Sentinel = ALL-ZERO tiles: degenerate (det == 0) triangles self-
-    # reject in the kernel.  The sentinel must be zero EVERYWHERE — a
-    # partial final chunk mixes sentinel variants with real clusters in
-    # the same summed assembly, and any nonzero sentinel value would
-    # corrupt the real candidates' lanes.
-    sentinel = xp.zeros((4, 16, 128), xp.float32)
-    return xp.concatenate([soup, sentinel], axis=0)
-
-
 def pack_soup_host(grid: ClusterGrid, positions: np.ndarray,
                    indices: np.ndarray) -> ClusterGrid:
-    """Attach the packed per-cluster soup (numpy, ingest-time).
+    """Attach the packed per-cluster soup (numpy, ingest-time): f32[C, 9,
+    K] rows (v0 xyz, e1 xyz, e2 xyz); padding slots carry far-away
+    degenerate triangles (tri id -1)."""
+    soup = _soup_components(np.asarray(grid.tri_id),
+                            np.asarray(positions, np.float32),
+                            np.asarray(indices, np.int32), np)
+    return grid.replace(soup=soup)
 
-    K % 128 == 0: soup f32[C+1, 16, K] rows are (v0 xyz, e1 xyz, e2 xyz,
-    zero pad), tri_packed i32[C+1, 1, K]; padding / the sentinel cluster
-    carry far-away degenerate triangles (tri id -1).
-    K == 32: the lane-group variant layout (pack_soup32).
-    """
-    positions = np.asarray(positions, np.float32)
-    indices = np.asarray(indices, np.int32)
-    c, k = grid.num_clusters, grid.k
-    tri_id = np.asarray(grid.tri_id)
-    comp = _soup_components(grid, positions, indices, np)    # [C,9,K]
-    tri_packed = np.concatenate(
-        [tri_id[:, None, :], np.full((1, 1, k), -1, np.int32)], axis=0)
-    if k == 32:
-        return grid.replace(soup=pack_soup32(grid, comp, np),
-                            tri_packed=tri_packed)
-    comp = np.concatenate(
-        [comp, np.zeros((c, 7, k), np.float32)], axis=1)     # [C,16,K]
-    soup = np.concatenate([comp, np.zeros((1, 16, k), np.float32)], axis=0)
-    return grid.replace(soup=soup, tri_packed=tri_packed)
+
+def pack_soup(grid: ClusterGrid, geometry) -> jnp.ndarray:
+    """Device version of the soup packing, from the CURRENT (detached)
+    geometry: f32[C, 9, K]."""
+    geometry = jax.tree.map(jax.lax.stop_gradient, geometry)
+    return _soup_components(grid.tri_id, geometry.positions,
+                            geometry.indices, jnp)
 
 
 def refit_clusters(grid: ClusterGrid, geometry) -> ClusterGrid:
@@ -196,28 +151,16 @@ def refit_clusters(grid: ClusterGrid, geometry) -> ClusterGrid:
     Cluster quality degrades gracefully if vertices move far (boxes grow,
     never miss).
     """
-    sg = jax.lax.stop_gradient
-    geometry = jax.tree.map(sg, geometry)
-    v0, e1, e2 = cluster_tri_soup(grid, geometry)        # [C,K,3], pad=far
-    pad = (grid.tri_id < 0)[..., None]
-    v1 = v0 + e1
-    v2 = v0 + e2
+    soup = pack_soup(grid, geometry)                     # [C,9,K]
+    v0 = soup[:, 0:3]
+    v1 = v0 + soup[:, 3:6]
+    v2 = v0 + soup[:, 6:9]
+    pad = (grid.tri_id < 0)[:, None, :]
     big = jnp.float32(3e30)
     lo3 = jnp.minimum(jnp.minimum(v0, v1), v2)
     hi3 = jnp.maximum(jnp.maximum(v0, v1), v2)
-    amin = jnp.where(pad, big, lo3).min(axis=1)          # [C,3]
-    amax = jnp.where(pad, -big, hi3).max(axis=1)
-    c, k = grid.num_clusters, grid.k
-    comp9 = jnp.concatenate([jnp.moveaxis(v0, -1, 1),
-                             jnp.moveaxis(e1, -1, 1),
-                             jnp.moveaxis(e2, -1, 1)], axis=1)  # [C,9,K]
-    if k == 32:
-        soup = pack_soup32(grid, comp9, jnp)
-    else:
-        comp = jnp.concatenate(
-            [comp9, jnp.zeros((c, 7, k), jnp.float32)], axis=1)
-        soup = jnp.concatenate([comp, jnp.zeros((1, 16, k), jnp.float32)],
-                               axis=0)
+    amin = jnp.where(pad, big, lo3).min(axis=2)          # [C,3]
+    amax = jnp.where(pad, -big, hi3).max(axis=2)
     if grid.soup is None:
         soup = None  # keep the pytree structure stable for jit
     pmin = pmax = None
@@ -225,21 +168,3 @@ def refit_clusters(grid: ClusterGrid, geometry) -> ClusterGrid:
         pmin, pmax = _parent_boxes(amin, amax, xp=jnp)
     return grid.replace(aabb_min=amin, aabb_max=amax, soup=soup,
                         parent_min=pmin, parent_max=pmax)
-
-
-def cluster_tri_soup(grid: ClusterGrid, geometry):
-    """Dense per-cluster triangle data from geometry (differentiable path).
-
-    Padding (-1) becomes a degenerate triangle at a far-away point so it can
-    never be hit.  Returns (v0, e1, e2) each f32[C, K, 3].
-    """
-    safe = jnp.maximum(grid.tri_id, 0)
-    tri = geometry.indices[safe]                       # [C,K,3]
-    p = geometry.positions
-    v0 = p[tri[..., 0]]
-    v1 = p[tri[..., 1]]
-    v2 = p[tri[..., 2]]
-    pad = (grid.tri_id < 0)[..., None]
-    far = jnp.float32(2e30)
-    v0 = jnp.where(pad, far, v0)
-    return v0, jnp.where(pad, 0.0, v1 - v0), jnp.where(pad, 0.0, v2 - v0)

@@ -47,7 +47,7 @@ def load_library():
     if _tried:
         return None
     _tried = True
-    if os.environ.get("PBR_TPU_NO_NATIVE"):
+    if os.environ.get("PBR_NO_NATIVE"):
         return None
     if not _LIB_PATH.exists() and not _try_build():
         return None

@@ -24,7 +24,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pbr-render",
-        description="TPU-native path tracer (headless glTF renderer)")
+        description="differentiable path tracer (headless glTF renderer)")
     p.add_argument("scene", help=".gltf/.glb path or builtin config name")
     p.add_argument("-o", "--output", default="out.png", help="output PNG")
     p.add_argument("--hdr-output", default=None,
@@ -80,7 +80,7 @@ def main(argv=None) -> int:
             return 2
         # Same policy as the builtin configs (utils/config.build_scene):
         # always attach clusters — tiny scenes become one padded cluster,
-        # where the Pallas tracer degenerates to VMEM brute force.
+        # where the block tracer degenerates to dense brute force.
         scene = with_clusters(scene)
         rcfg = RenderConfig()
 
@@ -138,13 +138,8 @@ def main(argv=None) -> int:
         rays = float(count)
     dt = time.perf_counter() - t0
 
-    if jax.default_backend() == "tpu":
-        from ..ops.tonemap import tonemap_pallas
-        ldr = tonemap_pallas(hdr)
-    else:
-        from ..core.tonemap import aces_gamma
-        ldr = aces_gamma(hdr)
-    film_mod.write_png(args.output, ldr)
+    from ..core.tonemap import aces_gamma
+    film_mod.write_png(args.output, aces_gamma(hdr))
     if args.hdr_output:
         np.save(args.hdr_output, np.asarray(hdr))
     print(f"wrote {args.output} ({rcfg.width}x{rcfg.height}, "

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from . import struct
 
 from . import math3d
 

@@ -1,6 +1,6 @@
 """Film: HDR accumulation buffer + LDR output.
 
-TPU-native analog of the reference's HdrImage (RGBA16F render target,
+Analog of the reference's HdrImage (RGBA16F render target,
 `src/pbr_engine/engine/pbr/HdrImage.cpp:12-45`) + swapchain LDR image.  The
 film is a plain pytree so it shards over image tiles (parallel/), accumulates
 across sample batches (progressive rendering), and is differentiable.
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from . import png, struct
 
 
 @struct.dataclass
@@ -48,10 +48,9 @@ def to_u8(ldr: jnp.ndarray) -> np.ndarray:
 def write_png(path: str, ldr: jnp.ndarray) -> None:
     """Write [H,W,3] float [0,1] as PNG (headless replacement for the
     reference's swapchain present, SURVEY.md section 2.11)."""
-    from PIL import Image
-    Image.fromarray(to_u8(ldr)).save(path)
+    png.write(path, to_u8(ldr))
 
 
 def read_png(path: str) -> np.ndarray:
-    from PIL import Image
-    return np.asarray(Image.open(path).convert("RGB"), dtype=np.float32) / 255.0
+    rgba = png.to_rgba(png.read(path))
+    return rgba[..., :3].astype(np.float32) / 255.0

@@ -1,6 +1,6 @@
 """Small 3D math library: vectors, quaternions, TRS transforms, camera matrices.
 
-TPU-native replacement for the reference engine's use of glm (see SURVEY.md
+Replacement for the reference engine's use of glm (see SURVEY.md
 section 2.11; reference: `src/pbr_engine/engine/pbr/CameraData.hpp:22-32`,
 `ModelPushConstant.hpp:40-46`).  Everything is pure jnp, batched-friendly
 (all ops broadcast over leading dims), f32 by default, and differentiable.

@@ -8,14 +8,18 @@ the RRT+ODT rational are reproduced with the reference's exact constants
 clamp to [0,1] (`aces+gamma.glsl:38`), so tonemapped output is bit-comparable
 up to float math.
 
-The jnp path is differentiable (used by inverse rendering when the loss is in
-display space); `ops.tonemap.tonemap_pallas` is the fused TPU kernel with
-identical math (primal-only), used by the CLI renderer.
+Differentiable (used by inverse rendering when the loss is in display
+space) and used by the CLI renderer; XLA fuses the whole chain.  The 3x3
+colour matrices are applied at HIGHEST precision: a float32 contraction may
+otherwise run in TF32 on a GPU, which keeps about three decimal digits.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 # Stephen Hill ACES fit, constants verbatim from the reference shader
 # (aces+gamma.glsl:10-19).  GLSL mat3 constructors are COLUMN-major and the
@@ -42,9 +46,9 @@ def rrt_and_odt_fit(c: jnp.ndarray) -> jnp.ndarray:
 
 def aces_tonemap(hdr: jnp.ndarray) -> jnp.ndarray:
     """ACES fitted tonemap of linear HDR RGB [..., 3] (aces+gamma.glsl:27-29)."""
-    c = hdr @ ACES_INPUT
+    c = jnp.matmul(hdr, ACES_INPUT, precision=_HIGHEST)
     c = rrt_and_odt_fit(c)
-    return c @ ACES_OUTPUT
+    return jnp.matmul(c, ACES_OUTPUT, precision=_HIGHEST)
 
 
 def gamma_correct(c: jnp.ndarray, gamma: float = 2.2) -> jnp.ndarray:

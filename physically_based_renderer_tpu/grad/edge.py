@@ -46,7 +46,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 from ..core.camera import Camera
 from ..core import math3d
@@ -97,9 +97,11 @@ def _project(camera: Camera, x, width: int, height: int):
     core.camera.generate_rays_at's NDC mapping."""
     right, up, fwd = camera.basis()
     v = x - camera.position
-    a_f = jnp.einsum("...k,k->...", v, fwd)
-    a_r = jnp.einsum("...k,k->...", v, right)
-    a_u = jnp.einsum("...k,k->...", v, up)
+    # Elementwise dot products: an einsum is a contraction that a GPU may
+    # run in TF32, too coarse for sub-pixel edge positions.
+    a_f = jnp.sum(v * fwd, axis=-1)
+    a_r = jnp.sum(v * right, axis=-1)
+    a_u = jnp.sum(v * up, axis=-1)
     aspect = width / height
     tan_half = jnp.tan(camera.fov_y / 2.0)
     safe_f = jnp.where(jnp.abs(a_f) > 1e-8, a_f, 1e-8)

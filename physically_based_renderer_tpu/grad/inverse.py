@@ -10,7 +10,7 @@ a jitted (optionally mesh-sharded) step: forward render -> pixel loss ->
 reverse-mode gradients (through the detached-sampling estimator, see
 integrator/path.py) -> optax update.  Under a mesh the whole step runs in
 shard_map with an EXPLICITLY PLACED `jax.lax.psum` gradient all-reduce over
-the tile axis (make_train_step_spmd) — the ICI collective the north star
+the tile axis (make_train_step_spmd) — the collective the north star
 prescribes, not GSPMD propagation.  Vertex optimization keeps acceleration
 structures live by refitting the cluster grid on-device every step
 (_with_live_accel).
@@ -24,7 +24,7 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from ..core import struct
 
 from ..core.camera import Camera
 from ..integrator.path import RenderConfig, render
@@ -108,7 +108,7 @@ def _with_live_accel(scene: Scene, params: TrainableParams) -> Scene:
     Cluster grids refit on-device every step (accel/clusters.refit_clusters)
     so the optimized mesh can never escape its (frozen-partition) AABBs; a
     BVH cannot refit inside jit (host builder), so it is dropped and tracing
-    falls back to brute/resident — correct, just slower.  No-op when
+    falls back to brute force — correct, just slower.  No-op when
     vertices are frozen.
     """
     if params.vertex_positions is None:
@@ -186,8 +186,8 @@ def make_train_step_spmd(scene: Scene, camera: Camera, cfg: RenderConfig,
 
     Per device: render its row band (all spp), local pixel loss, reverse-
     mode gradients — then ONE placed `jax.lax.psum` of the parameter
-    gradients over the mesh axis (this is the gradient all-reduce riding
-    ICI; BASELINE north star), identical replicated optimizer update on
+    gradients over the mesh axis (the gradient all-reduce of the BASELINE
+    north star), identical replicated optimizer update on
     every device.  Nothing is left to GSPMD propagation: in_specs place the
     target rows on the axis, out_specs keep params/opt_state replicated.
 
@@ -257,7 +257,7 @@ def make_train_step_spmd(scene: Scene, camera: Camera, cfg: RenderConfig,
         # tolerance masked (mesh gradient measured at exactly n x the
         # single-device one).  With varying params the per-shard grads
         # stay local and the ONE placed psum below is the gradient
-        # all-reduce riding ICI.
+        # all-reduce.
         params_v = jax.tree.map(
             lambda x: jax.lax.pcast(x, TILE_AXIS, to="varying"), params)
         loss, grads = jax.value_and_grad(local_loss)(params_v, scene, key,

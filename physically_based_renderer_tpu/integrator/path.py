@@ -61,11 +61,11 @@ class RenderConfig:
     rr_start: int = 100           # bounce index where Russian roulette starts
     ray_eps: float = 1e-3         # shadow/secondary ray offset
     tri_chunk: int = 2048         # brute-force intersection chunk size
-    tracer: str = "auto"          # auto|brute|bvh|resident|block|pallas
-    block_size: int = 256         # ray block for the block/pallas tracers
+    tracer: str = "auto"          # auto|brute|bvh|block|triton
+    block_size: int = 256         # ray block of the cluster tracers
     max_u: int = 48               # candidate clusters per block
-    chunk: int = 4                # candidate clusters DMA'd+tested per
-    #                               kernel loop iteration (pallas tracer)
+    interpret: bool = False       # run the Triton tracer in the Pallas
+    #                               interpreter (tests on hosts without a GPU)
     resort: bool = True           # in-tracer direction-bin sort for bounce
     #                               closest-hit calls (block tracers feed on
     #                               block coherence; no-op otherwise)
@@ -92,14 +92,22 @@ def _power_mis(pa: jnp.ndarray, pb: jnp.ndarray) -> jnp.ndarray:
     return jnp.where(pa > 0.0, a2 / jnp.maximum(a2 + pb * pb, 1e-20), 0.0)
 
 
-def _auto_tracer(scene: Scene) -> str:
-    """Pick the intersection backend at TRACE time (host decision)."""
-    from ..ops.resident import RESIDENT_AUTO_MAX_TRIS
-    if (jax.default_backend() == "tpu"
-            and scene.geometry.num_tris <= RESIDENT_AUTO_MAX_TRIS):
-        return "resident"
+# Cluster tracer for scenes with a cluster grid on an NVIDIA GPU: the one
+# that wins the frame end to end on an H100 in every config, one-cluster
+# scenes included (PERF.md).
+GPU_CLUSTER_TRACER = "triton"
+
+
+def select_tracer(scene: Scene, cfg: RenderConfig) -> str:
+    """The one tracer dispatch, decided at TRACE time from the platform and
+    the scene: cfg.tracer when it names one, otherwise the GPU's cluster
+    tracer on "gpu", the XLA block tracer elsewhere, the BVH or brute force
+    for scenes without clusters."""
+    if cfg.tracer != "auto":
+        return cfg.tracer
     if scene.clusters is not None:
-        return "pallas" if jax.default_backend() == "tpu" else "block"
+        return (GPU_CLUSTER_TRACER if jax.default_backend() == "gpu"
+                else "block")
     if scene.bvh is not None:
         return "bvh"
     return "brute"
@@ -116,51 +124,43 @@ def _maybe_exchange(tr, o, d, t_max, cfg: RenderConfig):
     return with_ring_exchange(tr, o, d, t_max_arr, cfg.exchange_axis)
 
 
+def _block_tracer(scene: Scene, cfg: RenderConfig, tracer: str, t_min,
+                  **kw):
+    """(o, d, t_max) -> result of the cluster tracer named by `tracer`."""
+    from ..ops.blocktrace import intersect_blocks
+
+    def tr(o_, d_, tm_):
+        return intersect_blocks(
+            scene.clusters, scene.geometry, o_, d_, t_min=t_min, t_max=tm_,
+            block=cfg.block_size, max_u=cfg.max_u,
+            kernel="triton" if tracer == "triton" else "xla",
+            interpret=cfg.interpret, **kw)
+
+    return tr
+
+
 def closest_hit(scene: Scene, o, d, t_min, cfg: RenderConfig,
                 active=None, sort: bool = False) -> Hit:
-    """Closest-hit dispatch (cfg.tracer: auto|brute|bvh|resident|block|
-    pallas).  'auto' = Pallas block tracer on TPU when clusters are
-    attached, XLA block tracer elsewhere, brute force for small scenes.
+    """Closest-hit dispatch (select_tracer).
 
-    `active`: optional bool[N] lane mask.  Block tracers turn dead lanes
+    `active`: optional bool[N] lane mask.  Cluster tracers turn dead lanes
     into t_max=0 rays, which drop out of the bundle bounds AND the kernel's
     live-lane early exit — dead lanes stop dragging whole blocks through
     every candidate cluster.  Dead lanes report miss.
 
-    `sort`: in-tracer direction-bin sort (block tracers): bounce rays are
+    `sort`: in-tracer direction-bin sort (cluster tracers): bounce rays are
     direction-scattered, and sorting INSIDE the trace call moves only the
     detached o/d/t_max (3 gathers + output unscramble) instead of the
-    whole per-lane integrator state (the old per-bounce resort permuted
-    ~12 ray-sized arrays — measured ~15 ms/bounce of pure data movement).
+    whole per-lane integrator state.
+
+    Cluster tracers return a lean (detached) Hit: shade_surface re-derives
+    the attached (u, v, t), so the tracer's own differentiable finish would
+    be duplicate ray-sized gathers.
     """
-    tracer = cfg.tracer if cfg.tracer != "auto" else _auto_tracer(scene)
+    tracer = select_tracer(scene, cfg)
     t_max = BIG if active is None else jnp.where(sg(active), BIG, 0.0)
-    if tracer == "resident":
-        from ..ops.resident import intersect_resident
-        return intersect_resident(scene.geometry, o, d, t_min=t_min,
-                                  interpret=jax.default_backend() != "tpu")
-    if tracer == "pallas":
-        from ..ops.blocktrace import intersect_blocks_pallas
-
-        # lean: shade_surface re-derives attached (u, v, t); the tracer's
-        # own differentiable finish would be duplicate ray-sized gathers.
-        def tr(o_, d_, tm_):
-            return intersect_blocks_pallas(
-                scene.clusters, scene.geometry, o_, d_, t_min=t_min,
-                t_max=tm_, block=cfg.block_size, max_u=cfg.max_u,
-                interpret=jax.default_backend() != "tpu", lean=True,
-                sort=sort, chunk=cfg.chunk)
-
-        return _maybe_exchange(tr, o, d, t_max, cfg)
-    if tracer == "block":
-        from ..ops.blocktrace import intersect_blocks
-
-        def tr(o_, d_, tm_):
-            return intersect_blocks(scene.clusters, scene.geometry, o_, d_,
-                                    t_min=t_min, t_max=tm_,
-                                    block=cfg.block_size,
-                                    max_u=cfg.max_u, sort=sort)
-
+    if tracer in ("block", "triton"):
+        tr = _block_tracer(scene, cfg, tracer, t_min, lean=True, sort=sort)
         return _maybe_exchange(tr, o, d, t_max, cfg)
     if tracer == "bvh":
         from ..ops.traverse import intersect_bvh
@@ -171,38 +171,13 @@ def closest_hit(scene: Scene, o, d, t_min, cfg: RenderConfig,
 
 
 def occluded(scene: Scene, o, d, t_min, t_max, cfg: RenderConfig):
-    """Any-hit (shadow) dispatch."""
-    tracer = cfg.tracer if cfg.tracer != "auto" else _auto_tracer(scene)
-    if tracer == "resident":
-        from ..ops.resident import intersect_resident
-        return intersect_resident(scene.geometry, o, d, t_min=t_min,
-                                  t_max=t_max, any_hit=True,
-                                  interpret=jax.default_backend() != "tpu")
-    if tracer == "pallas":
-        from ..ops.blocktrace import intersect_blocks_pallas
-
-        # cfg.resort: shadow directions are light-sampled, not bounce-
-        # coherent — an in-call stable octant sort keeps each block's
-        # bundle sign-coherent (origins stay morton-local).  The knob is
-        # shared with the bounce-ray sort so A/B runs can disable ALL
-        # in-tracer sorting.
-        def tr(o_, d_, tm_):
-            return intersect_blocks_pallas(
-                scene.clusters, scene.geometry, o_, d_, t_min=t_min,
-                t_max=tm_, any_hit=True, block=cfg.block_size,
-                max_u=cfg.max_u, interpret=jax.default_backend() != "tpu",
-                sort=cfg.resort, chunk=cfg.chunk)
-
-        return _maybe_exchange(tr, o, d, t_max, cfg)
-    if tracer == "block":
-        from ..ops.blocktrace import intersect_blocks
-
-        def tr(o_, d_, tm_):
-            return intersect_blocks(scene.clusters, scene.geometry, o_, d_,
-                                    t_min=t_min, t_max=tm_, any_hit=True,
-                                    block=cfg.block_size, max_u=cfg.max_u,
-                                    sort=cfg.resort)
-
+    """Any-hit (shadow) dispatch.  Shadow directions are light-sampled, not
+    bounce-coherent, so cluster tracers sort them by direction bin in the
+    call when cfg.resort is set (the same knob as the bounce-ray sort)."""
+    tracer = select_tracer(scene, cfg)
+    if tracer in ("block", "triton"):
+        tr = _block_tracer(scene, cfg, tracer, t_min, any_hit=True,
+                           sort=cfg.resort)
         return _maybe_exchange(tr, o, d, t_max, cfg)
     if tracer == "bvh":
         from ..ops.traverse import intersect_bvh
@@ -255,15 +230,15 @@ def trace_radiance(scene: Scene, o: jnp.ndarray, d: jnp.ndarray,
     # pdf of the *previous* BSDF sampling decision, for MIS of emitter hits.
     prev_pdf = jnp.zeros((n,), jnp.float32)  # 0 => treat as delta (camera)
 
-    # Per-bounce coherence handling (block tracers only): bounce rays are
+    # Per-bounce coherence handling (cluster tracers only): bounce rays are
     # BSDF-sampled and direction-scattered, so their closest-hit calls use
     # the IN-TRACER direction-bin sort (closest_hit sort=True) — only the
     # detached o/d/t_max move, and outputs come back unscrambled.  (An
     # integrator-level resort that permuted the whole per-lane state —
-    # L/throughput/keys/etc, ~12 ray-sized arrays — was measured at
-    # ~15 ms/bounce of pure data movement on v5e and removed.)
-    tracer_kind = cfg.tracer if cfg.tracer != "auto" else _auto_tracer(scene)
-    use_sort = cfg.resort and tracer_kind in ("block", "pallas")
+    # L/throughput/keys/etc, ~12 ray-sized arrays — was pure data movement
+    # and was removed.)
+    use_sort = cfg.resort and select_tracer(scene, cfg) in ("block",
+                                                            "triton")
 
     for bounce in range(cfg.max_bounces + 1):
         ray_count = ray_count + jnp.sum(active.astype(jnp.float32))
@@ -324,13 +299,11 @@ def trace_radiance(scene: Scene, o: jnp.ndarray, d: jnp.ndarray,
 
         # --- NEE --------------------------------------------------------
         # One occluded() call PER light family.  Batching the families
-        # into a single 2N-ray call was tried (they share shadow origins)
-        # and measured 40 ms/sample-pass SLOWER on the glb helmet: the
-        # in-call sort mixes area rays (short t_max, visor-bound) with
-        # env rays (root-box t_max) in the same direction-bin blocks,
-        # and the heterogeneous t_max population defeats the any-hit
-        # early exit's max-over-open-lanes clause.  Kept separate —
-        # homogeneous populations beat one dispatch.
+        # into a single 2N-ray call (they share shadow origins) was slower
+        # on the glb helmet: the in-call sort mixes area rays (short
+        # t_max, visor-bound) with env rays (root-box t_max) in the same
+        # direction-bin blocks, and the heterogeneous t_max population
+        # defeats the any-hit early exit's max-over-open-lanes clause.
         if cfg.nee:
             n_shadow = float((1 if has_emitters else 0)
                              + (1 if has_env else 0)
@@ -419,11 +392,10 @@ def _nee_prepare(sp, wo, ls, throughput, active, mis: bool,
 # ---------------------------------------------------------------------------
 
 def _wants_morton(scene: Scene, cfg: RenderConfig) -> bool:
-    """Morton-order the ray stream when a block tracer will run: block
+    """Morton-order the ray stream when a cluster tracer will run: block
     coherence is what its candidate culling feeds on (core/morton.py).
     Other tracers are order-invariant — skip the unscramble gather."""
-    tracer = cfg.tracer if cfg.tracer != "auto" else _auto_tracer(scene)
-    return tracer in ("block", "pallas")
+    return select_tracer(scene, cfg) in ("block", "triton")
 
 
 def _sample_radiance(scene: Scene, camera: Camera, key: jax.Array,
@@ -498,36 +470,10 @@ def render_image(scene: Scene, camera: Camera, seed: int,
     return render(scene, camera, jax.random.key(seed), cfg).mean()
 
 
-def _use_fused(scene: Scene, cfg: RenderConfig) -> bool:
-    """Static dispatch: whole-frame megakernel (ops/fused.py) on TPU for
-    SMEM-resident scenes.  Primal-only paths (render_with_stats,
-    render_fast); gradient paths keep the dense integrator."""
-    from ..ops.fused import fused_applicable
-    return (cfg.tracer in ("auto", "fused")
-            and jax.default_backend() == "tpu"
-            and fused_applicable(scene, cfg))
-
-
-def render_fast(scene: Scene, camera: Camera, key: jax.Array,
-                cfg: RenderConfig) -> Film:
-    """Fastest primal render: fused megakernel when applicable, else the
-    dense integrator.  NOT differentiable — use render() for gradients."""
-    film, _ = render_with_stats(scene, camera, key, cfg)
-    return film
-
-
 @partial(jax.jit, static_argnames=("cfg",))
 def render_with_stats(scene: Scene, camera: Camera, key: jax.Array,
                       cfg: RenderConfig):
-    """Render + exact ray-query count (for rays/s benchmarks).
-
-    Dispatches to the fused whole-frame megakernel (ops/fused.py) when the
-    scene is SMEM-resident on TPU; identical estimator, different (hardware)
-    RNG stream, so images agree statistically rather than bitwise."""
-    if _use_fused(scene, cfg):
-        from ..ops.fused import render_fused_stats
-        hdr, count = render_fused_stats(scene, camera, key, cfg)
-        return Film(hdr=hdr, spp=jnp.asarray(cfg.spp, jnp.float32)), count
+    """Render + exact ray-query count (for rays/s benchmarks)."""
     return _render_with_stats_dense(scene, camera, key, cfg)
 
 

@@ -1,6 +1,6 @@
 """Surface shading-point construction from hit records.
 
-The TPU analog of the reference's G-buffer fill (geometry-pass fragment
+The analog of the reference's G-buffer fill (geometry-pass fragment
 shader `assets/shaders/geometry_pass/fragment.glsl:19-31`): interpolate
 vertex attributes at the hit, run normal mapping through the TBN frame
 (bitangent = cross(N, T.xyz) * T.w, `geometry_pass/vertex.glsl:25-37`), and
@@ -14,15 +14,15 @@ uvs) is packed ONCE per frame into a single wide table f32[T, 53]
 (pack_tri_attrs — attached, so vertex gradients still flow) and each bounce
 does ONE wide-row gather.  The attached winner re-intersection (barycentrics
 u, v from Moller-Trumbore on the gathered v0/e1/e2) also lives here, so
-tracers are free to return fully detached hits (ops/resident.py,
-ops/blocktrace.py do the search detached).
+tracers are free to return fully detached hits (ops/blocktrace.py does the
+search detached).
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core import math3d
 from ..models.bsdf import BsdfParams

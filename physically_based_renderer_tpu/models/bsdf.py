@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 INV_PI = 0.31830988618379067
 MIN_ALPHA = 1e-4

@@ -16,7 +16,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 from ..ops.gather import take_rows
 from ..ops.texture import sample_env_bilinear
@@ -98,11 +98,11 @@ def sample_area_emitters(scene: Scene, p: jnp.ndarray, u1: jnp.ndarray,
     n = p.shape[0]
     if emitter_attrs is None:
         emitter_attrs = pack_emitter_attrs(scene)
-    # Emitter pick: dense CDF compare for small counts (fastest on the
-    # VPU); for emitter-rich scenes (e.g. a ~7.8k-tri emissive visor) the
+    # Emitter pick: dense CDF compare for small counts (pure elementwise
+    # work); for emitter-rich scenes (e.g. a ~7.8k-tri emissive visor) the
     # Walker alias table gives the SAME distribution in O(1) — 2 gathers,
     # vs a [N, E] compare (4G lanes at 262k x 15k) or ~13 dependent
-    # searchsorted gather rounds (measured ~36 ms/bounce at 262k rays).
+    # searchsorted gather rounds.
     # u1 splits into (slot, accept) via the standard fractional reuse:
     # slot = floor(u1*E), accept on frac(u1*E) — both uniform.
     if em.num_emitters <= 64:
@@ -180,8 +180,7 @@ def sample_env(scene: Scene, n_rays: int, u2: jnp.ndarray) -> LightSample:
 
     Exactly the texel distribution the 2D-CDF tables encode, but O(1):
     u2[:,0] picks the slot, u2[:,1] the accept/alias branch — 2 gathers
-    instead of log2(W)+log2(H) dependent binary-search rounds (19 ms ->
-    ~2 ms per 262k-ray NEE pass on v5e; VERDICT r1 item #7).
+    instead of log2(W)+log2(H) dependent binary-search rounds.
     """
     env = scene.env
     h, w = env.data.shape[0], env.data.shape[1]

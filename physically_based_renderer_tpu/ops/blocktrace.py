@@ -1,30 +1,30 @@
-"""Block-stream tracer: coherence-exploiting intersection (fast TPU path).
+"""Block-stream tracer: coherence-exploiting intersection.
 
-Measured facts driving the design (v5e, see also ops/traverse.py which this
-supersedes for large scenes):
-  * dense Moller-Trumbore is nearly free (~50G tests/s via fused VPU work);
-  * per-pair ROW GATHERS run ~40x off HBM speed (1.8 ms / 16k rows);
-  * jnp.nonzero compaction is catastrophic (~300 ms / 25M lanes).
+Per-ray traversal needs per-ray gathers and divergent control flow, and
+per-ray compaction (`jnp.nonzero`) needs dynamic shapes.  This tracer has
+neither: rays are processed in BLOCKS of B (spatially coherent camera rays
+in morton order; bounce and shadow rays sorted by direction bin inside the
+call):
 
-So: never compact per ray, never gather per ray.  Rays are processed in
-BLOCKS of B (spatially coherent for camera rays; bounce rays can be sorted
-by integrator-level compaction later):
-
-  1. per block: conservative interval-arithmetic slab test of the ray
-     BUNDLE (origin box x direction box) against all C cluster AABBs ->
-     [NB, C] — a few thousand lanes, trivial;
-  2. per block: top-U nearest candidate clusters (lax.top_k — 70x cheaper
-     than nonzero);
-  3. scan over U: gather ONE cluster block per (block, u) — NB x U row
-     gathers total instead of N x avg — and run dense [NB, B, K]
-     Moller-Trumbore against every ray of the block, running-min per ray.
+  phase A (`_select_candidates`): per block, a conservative interval-
+     arithmetic slab test of the ray BUNDLE (origin box x direction box)
+     against the cluster AABBs — hierarchically through parent boxes for
+     cluster-rich grids — and the U nearest overlapping clusters by
+     lax.top_k, with each candidate's conservative entry distance;
+  phase B: intersect the block's rays with the triangles of its candidates,
+     nearest first.  Two implementations share phase A:
+       "xla"    — `_phase_b_xla`: chunks of candidates as dense
+                  [NB, B, chunk*K] Moller-Trumbore, up to the largest
+                  candidate count of any block;
+       "triton" — ops/pallas_trace.py: a Pallas kernel (Triton route) that
+                  walks each tile's candidates and exits early.
+  finish: winner decode, then either a detached Hit (`lean`, for callers
+     that re-derive attached data, integrator/shading.py) or the attached
+     re-intersection on the winning triangle, so vertex gradients flow.
 
 Correctness cap: a block needing more than U clusters drops the farthest
 ones — misses are possible for extremely incoherent blocks.  U is
-configurable; `block_union_counts()` measures the true demand, and the
-integrator can re-sort bounce rays to keep blocks coherent.  Closest-hit
-winners get the standard detached-search/attached-finish treatment so
-vertex gradients flow.
+configurable (RenderConfig.max_u).
 """
 
 from __future__ import annotations
@@ -34,21 +34,21 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from ..accel.clusters import ClusterGrid, cluster_tri_soup
+from ..accel.clusters import ClusterGrid, pack_soup
 from .intersect import BIG, Hit
 
 sg = jax.lax.stop_gradient
+
+KERNELS = ("xla", "triton")
+XLA_CHUNK = 8   # candidates per step of the XLA phase B
 
 
 def bucket_sort_perm(key: jnp.ndarray, n_buckets: int) -> jnp.ndarray:
     """Stable counting-sort permutation for small integer keys [N].
 
-    jnp.argsort on 262k lanes costs ~20 ms on v5e; for a few tens of
-    buckets a one-hot cumsum + one scatter build the same stable
-    permutation far cheaper (measured ~2 ms at 16 buckets / 262k lanes;
-    the [N, n_buckets] one-hot + cumsum scales linearly in bucket count,
-    so the 25-bucket caller `_octant_perm` pays ~1.5x that — still ~7x
-    under argsort).  Returns perm with key[perm] sorted ascending, stable.
+    A one-hot cumsum + one scatter build the stable permutation; the
+    [N, n_buckets] one-hot scales linearly in the bucket count, which is a
+    few tens here.  Returns perm with key[perm] sorted ascending, stable.
     """
     n = key.shape[0]
     onehot = (key[:, None] == jnp.arange(n_buckets)).astype(jnp.int32)
@@ -71,8 +71,7 @@ def _root_cull(grid: "ClusterGrid", o, d, t_min, t_max_arr):
     n_valid = 0.  Rays that do enter have t_max clipped to the (inflated)
     box EXIT distance — any legitimate hit lies inside the root box, and a
     finite t_max lets closest-hit blocks exit as soon as every live lane's
-    best beats the next candidate's entry.  On the 100k-tri helmet ~60% of
-    camera rays and most escaped bounce rays die here for ~30 flops/ray.
+    best beats the next candidate's entry.
     """
     lo = jnp.min(grid.aabb_min, axis=0)
     hi = jnp.max(grid.aabb_max, axis=0)
@@ -90,9 +89,7 @@ def dir_bin(d) -> jnp.ndarray:
     """Direction coherence bin in [0, 24): octant (3 sign bits) x dominant
     axis.  Within a bin all components share sign AND the same axis
     dominates, bounding the bundle to a ~54-degree cone — the interval
-    slab test culls an order of magnitude better than with raw 90-degree
-    octants (measured on helmet NEE shadow rays: mean candidate demand
-    48 -> ~8 per block)."""
+    slab test culls far better than with raw 90-degree octants."""
     octant = ((d[:, 0] < 0).astype(jnp.int32) * 4
               + (d[:, 1] < 0).astype(jnp.int32) * 2
               + (d[:, 2] < 0).astype(jnp.int32))
@@ -108,7 +105,7 @@ def _octant_perm(d, t_max_arr):
     Keeps the caller's position-coherent (morton) order WITHIN each bucket,
     so blocks get cone-coherent direction bundles without losing origin
     locality — exactly what the interval slab test feeds on.  Dead lanes
-    (t_max = 0) pack into trailing all-dead blocks the kernel skips.
+    (t_max = 0) pack into trailing all-dead blocks that phase B skips.
     """
     key = jnp.where(t_max_arr > 0.0, dir_bin(d), 24)
     return bucket_sort_perm(key, 25)
@@ -117,9 +114,10 @@ def _octant_perm(d, t_max_arr):
 def _interval_slab(amin, amax, o_lo, o_hi, iv_lo, iv_hi, t_min, t_max_hi):
     """Conservative bundle-vs-AABB test.
 
-    amin/amax: [C,3]; o_lo/o_hi: [NB,3] origin bounds; iv_lo/iv_hi: [NB,3]
-    inverse-direction bounds; t_max_hi: [NB] largest t_max in block.
-    Returns (overlap [NB,C], entry_lo [NB,C] conservative nearest entry).
+    amin/amax: [C,3] shared boxes or [NB,M,3] per-block boxes; o_lo/o_hi:
+    [NB,3] origin bounds; iv_lo/iv_hi: [NB,3] inverse-direction bounds;
+    t_max_hi: [NB] largest t_max in block.
+    Returns (overlap [NB,C|M], entry_lo [NB,C|M] conservative nearest entry).
     """
     def prod_bounds(a):  # a: [NB,C,3] interval times inv interval
         c1 = a * iv_lo[:, None, :]
@@ -127,10 +125,10 @@ def _interval_slab(amin, amax, o_lo, o_hi, iv_lo, iv_hi, t_min, t_max_hi):
         return jnp.minimum(c1, c2), jnp.maximum(c1, c2)
 
     # (amin - o) spans [amin - o_hi, amin - o_lo]
-    a_lo = amin[None] - o_hi[:, None, :]
-    a_hi = amin[None] - o_lo[:, None, :]
-    b_lo = amax[None] - o_hi[:, None, :]
-    b_hi = amax[None] - o_lo[:, None, :]
+    a_lo = amin - o_hi[:, None, :]
+    a_hi = amin - o_lo[:, None, :]
+    b_lo = amax - o_hi[:, None, :]
+    b_hi = amax - o_lo[:, None, :]
     # interval product: min/max over the 4 corner products
     t0l1, t0h1 = prod_bounds(a_lo)
     t0l2, t0h2 = prod_bounds(a_hi)
@@ -148,201 +146,25 @@ def _interval_slab(amin, amax, o_lo, o_hi, iv_lo, iv_hi, t_min, t_max_hi):
     return overlap, jnp.maximum(near_lo, 0.0)
 
 
-def _mt_block(o, d, v0, e1, e2, t_min, eps=1e-9):
-    """[NB,B,K] Moller-Trumbore. o/d [NB,B,3], v0/e1/e2 [NB,K,3]."""
-    dP = d[:, :, None, :]
-    e2P = e2[:, None, :, :]
-    e1P = e1[:, None, :, :]
-    p = jnp.cross(dP, e2P)
-    det = jnp.sum(p * e1P, axis=-1)
-    inv_det = jnp.where(jnp.abs(det) > eps, 1.0 / det, 0.0)
-    tv = o[:, :, None, :] - v0[:, None, :, :]
-    u = jnp.sum(tv * p, axis=-1) * inv_det
-    q = jnp.cross(tv, e1P)
-    v = jnp.sum(dP * q, axis=-1) * inv_det
-    t = jnp.sum(e2P * q, axis=-1) * inv_det
-    ok = ((jnp.abs(det) > eps) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-          & (t > t_min))
-    return t, ok
-
-
 def _round_up(x, m):
     return -(-x // m) * m
 
 
-@partial(jax.jit, static_argnames=("any_hit", "block", "max_u",
-                                   "t_min_static", "sort"))
-def _impl(grid: ClusterGrid, geometry, o, d, t_max_arr, *,
-          t_min_static: float, any_hit: bool, block: int, max_u: int,
-          sort: bool = False):
-    n = o.shape[0]
-    t_min = t_min_static
+def _select_candidates(grid, ob, db, tmb, t_min, max_u):
+    """Phase A: per-block interval culling + nearest-first top-U.
+
+    ob/db [NB, B, 3], tmb [NB, B] (t_max = 0 marks a dead lane).  Returns
+    (u_idx i32[NB, U], u_entry f32[NB, U], n_valid i32[NB]): valid
+    candidates come first (sorted by conservative entry distance); invalid
+    slots hold the sentinel cluster index C and entry BIG.
+
+    Cluster-rich grids go HIERARCHICAL: slab + top_k over the 4x smaller
+    parent boxes, arithmetic expansion to the 4 consecutive children per
+    parent, exact child slab, then a small nearest-first top_k over the
+    expanded list — a flat top_k over thousands of clusters costs more than
+    the culling saves."""
     c = grid.num_clusters
-    max_u = min(max_u, c)
-    k = grid.k
-
-    v0g, e1g, e2g = cluster_tri_soup(grid, jax.tree.map(sg, geometry))
-
-    b = block
-    o_sg, d_sg = sg(o), sg(d)
-    t_max_arr = _root_cull(grid, o_sg, d_sg, t_min,
-                           jnp.asarray(t_max_arr, jnp.float32))
-    if sort:
-        perm = _octant_perm(d_sg, t_max_arr)
-        o_sg, d_sg, t_max_arr = o_sg[perm], d_sg[perm], t_max_arr[perm]
-    n_pad = _round_up(n, b)
-    pad = n_pad - n
-    o_s = jnp.concatenate([o_sg, jnp.full((pad, 3), 3e30, jnp.float32)])
-    d_s = jnp.concatenate([d_sg, jnp.tile(
-        jnp.array([[1.0, 0.0, 0.0]], jnp.float32), (pad, 1))])
-    tm = jnp.concatenate([t_max_arr, jnp.zeros((pad,), jnp.float32)])
-    nb = n_pad // b
-    ob = o_s.reshape(nb, b, 3)
-    db = d_s.reshape(nb, b, 3)
-    tmb = tm.reshape(nb, b)
-
-    inv = jnp.where(db >= 0.0, 1.0, -1.0) / jnp.maximum(jnp.abs(db), 1e-12)
-    # Bundle bounds. Padded lanes (origin 3e30) would blow up the origin box
-    # of the last block; mask them to the block's first lane instead.
-    lane_valid = (jnp.arange(n_pad) < n).reshape(nb, b, 1)
-    o_ref = ob[:, :1, :]
-    ob_m = jnp.where(lane_valid, ob, o_ref)
-    inv_m = jnp.where(lane_valid, inv, inv[:, :1, :])
-    o_lo = ob_m.min(axis=1)
-    o_hi = ob_m.max(axis=1)
-    iv_lo = inv_m.min(axis=1)
-    iv_hi = inv_m.max(axis=1)
-    tm_hi = tmb.max(axis=1)
-
-    overlap, entry = _interval_slab(grid.aabb_min, grid.aabb_max, o_lo,
-                                    o_hi, iv_lo, iv_hi, t_min, tm_hi)
-    # nearest-first candidate selection
-    score = jnp.where(overlap, -entry, -jnp.inf)
-    _, u_idx = jax.lax.top_k(score, max_u)            # [NB, U]
-    u_valid = jnp.take_along_axis(overlap, u_idx, axis=1)
-
-    # Process candidates in chunks of u_chunk clusters: one gather of
-    # [NB, u_chunk] rows, one fused [NB, B, u_chunk*K] MT + reduction per
-    # step — few scan steps, no per-step index materialization.
-    u_chunk = min(8, max_u)
-    n_uc = -(-max_u // u_chunk)
-    u_pad = n_uc * u_chunk
-    if u_pad > max_u:
-        u_idx = jnp.pad(u_idx, ((0, 0), (0, u_pad - max_u)))
-        u_valid = jnp.pad(u_valid, ((0, 0), (0, u_pad - max_u)))
-
-    def u_step(carry, uc):
-        best_t, best_flat, occ = carry
-        sl = jax.lax.dynamic_slice_in_dim(u_idx, uc * u_chunk, u_chunk, 1)
-        vl = jax.lax.dynamic_slice_in_dim(u_valid, uc * u_chunk, u_chunk, 1)
-        v0 = v0g[sl].reshape(nb, u_chunk * k, 3)
-        e1 = e1g[sl].reshape(nb, u_chunk * k, 3)
-        e2 = e2g[sl].reshape(nb, u_chunk * k, 3)
-        t, ok = _mt_block(ob, db, v0, e1, e2, t_min)   # [NB,B,uc*K]
-        tri_ok = (grid.tri_id[sl] >= 0) & vl[:, :, None]  # [NB,uc,K]
-        ok = ok & tri_ok.reshape(nb, 1, u_chunk * k) & (t < tmb[:, :, None])
-        if any_hit:
-            occ = occ | jnp.any(ok, axis=-1)
-            return (best_t, best_flat, occ), None
-        t = jnp.where(ok, t, BIG)
-        kb = jnp.argmin(t, axis=-1)                    # [NB,B]
-        tb = jnp.take_along_axis(t, kb[..., None], axis=-1)[..., 0]
-        better = tb < best_t
-        best_t = jnp.where(better, tb, best_t)
-        best_flat = jnp.where(better, uc * u_chunk * k + kb, best_flat)
-        return (best_t, best_flat, occ), None
-
-    # Carry init derived from the (varying) ray data so shard_map's
-    # varying-axis check accepts the scan (see ops/intersect.py).
-    zb = db[:, :, 0] * 0.0                         # [NB, B] varying zeros
-    init = (zb + BIG, zb.astype(jnp.int32) - 1, zb > 1.0)
-    (best_t, best_flat, occ), _ = jax.lax.scan(
-        u_step, init, jnp.arange(n_uc))
-
-    if any_hit:
-        occ = occ.reshape(n_pad)[:n]
-        if sort:
-            occ = jnp.zeros((n,), bool).at[perm].set(occ)
-        return occ
-
-    # Decode winner: flat = u * K + k within the candidate grid.
-    found2 = best_flat >= 0
-    flat = jnp.maximum(best_flat, 0)
-    cl_win = jnp.take_along_axis(u_idx, flat // k, axis=1)   # [NB,B]
-    tri_win = grid.tri_id[cl_win, flat % k]
-    tri = jnp.where(found2, tri_win, -1).reshape(n_pad)[:n]
-    if sort:
-        tri = jnp.full((n,), -1, jnp.int32).at[perm].set(tri)
-    # Differentiable finish on the winning triangle.
-    safe = jnp.maximum(tri, 0)
-    idx = geometry.indices[safe]
-    p = geometry.positions
-    w0 = p[idx[:, 0]]
-    e1w = p[idx[:, 1]] - w0
-    e2w = p[idx[:, 2]] - w0
-    pv = jnp.cross(d, e2w)
-    det = jnp.sum(pv * e1w, axis=-1)
-    inv_det = jnp.where(jnp.abs(det) > 1e-9, 1.0 / det, 0.0)
-    tv = o - w0
-    u = jnp.sum(tv * pv, axis=-1) * inv_det
-    q = jnp.cross(tv, e1w)
-    v = jnp.sum(d * q, axis=-1) * inv_det
-    t = jnp.sum(e2w * q, axis=-1) * inv_det
-    found = tri >= 0
-    return Hit(t=jnp.where(found, t, BIG), tri=tri,
-               u=jnp.where(found, u, 0.0), v=jnp.where(found, v, 0.0))
-
-
-def intersect_blocks(grid: ClusterGrid, geometry, o, d, t_min: float = 1e-4,
-                     t_max=BIG, any_hit: bool = False, block: int = 512,
-                     max_u: int = 48, sort: bool = False):
-    """Closest-hit (Hit) or any-hit (bool[N]) via the block-stream tracer."""
-    n = o.shape[0]
-    t_max_arr = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (n,))
-    return _impl(grid, geometry, o, d, t_max_arr,
-                 t_min_static=float(t_min), any_hit=any_hit, block=block,
-                 max_u=max_u, sort=sort)
-
-
-def block_union_counts(grid: ClusterGrid, o, d, block: int = 512,
-                       t_min=1e-4, t_max=BIG):
-    """Diagnostic: per-block candidate-cluster demand (tune max_u)."""
-    n = o.shape[0]
-    n_pad = _round_up(n, block)
-    pad = n_pad - n
-    o_s = jnp.concatenate([o, jnp.repeat(o[-1:], pad, 0)])
-    d_s = jnp.concatenate([d, jnp.repeat(d[-1:], pad, 0)])
-    nb = n_pad // block
-    ob = o_s.reshape(nb, block, 3)
-    db = d_s.reshape(nb, block, 3)
-    inv = jnp.where(db >= 0.0, 1.0, -1.0) / jnp.maximum(jnp.abs(db), 1e-12)
-    overlap, _ = _interval_slab(
-        grid.aabb_min, grid.aabb_max, ob.min(1), ob.max(1), inv.min(1),
-        inv.max(1), t_min,
-        jnp.full((nb,), t_max if jnp.ndim(t_max) == 0 else BIG, jnp.float32))
-    return overlap.sum(axis=-1)
-
-
-# ---------------------------------------------------------------------------
-# Pallas-accelerated path: same phase A, kernel phase B (ops/pallas_trace.py)
-# ---------------------------------------------------------------------------
-
-def _select_candidates(grid, o_s, d_s, tm, nb, b, t_min, max_u):
-    """Shared phase A: per-block interval culling + nearest-first top-U.
-    Invalid slots get the sentinel cluster index C.  Also returns the
-    per-block valid-candidate count and each candidate's conservative
-    entry-t (both drive the kernel's early exit).
-
-    Cluster-rich grids (k=32 sub-clusters) go HIERARCHICAL: slab + top_k
-    over the 4x smaller parent boxes, arithmetic expansion to the 4
-    consecutive children per parent, exact child slab, then a small
-    nearest-first top_k over the expanded list — a flat top_k(max_u) over
-    4096 sub-clusters was costing more than the finer candidates saved
-    (~6-8 ms per 262k-ray trace on v5e)."""
-    c = grid.num_clusters
-    ob = o_s.reshape(nb, b, 3)
-    db = d_s.reshape(nb, b, 3)
-    tmb = tm.reshape(nb, b)
+    nb = ob.shape[0]
     inv = jnp.where(db >= 0.0, 1.0, -1.0) / jnp.maximum(jnp.abs(db), 1e-12)
     lane_valid = (tmb > 0.0)[..., None]
     o_ref = ob[:, :1, :]
@@ -364,146 +186,142 @@ def _select_candidates(grid, o_s, d_s, tm, nb, b, t_min, max_u):
                  + jnp.arange(4, dtype=p_idx.dtype)).reshape(nb, -1)
         c_ok = (child < c) & jnp.repeat(p_valid, 4, axis=1)
         safe = jnp.minimum(child, c - 1)
-        cmin = grid.aabb_min[safe]                           # [NB, 4NP, 3]
-        cmax = grid.aabb_max[safe]
         # per-block child slab (same interval math, boxes now per block)
-        overlap, entry = _interval_slab_local(
-            cmin, cmax, o_lo, o_hi, iv_lo, iv_hi, t_min, tm_hi)
+        overlap, entry = _interval_slab(
+            grid.aabb_min[safe], grid.aabb_max[safe], o_lo, o_hi, iv_lo,
+            iv_hi, t_min, tm_hi)
         overlap = overlap & c_ok
-        score = jnp.where(overlap, -entry, -jnp.inf)
-        k_sel = min(max_u, score.shape[1])
-        _, s_idx = jax.lax.top_k(score, k_sel)
+        _, s_idx = jax.lax.top_k(jnp.where(overlap, -entry, -jnp.inf),
+                                 min(max_u, overlap.shape[1]))
         u_idx = jnp.take_along_axis(child, s_idx, axis=1)
-        u_valid = jnp.take_along_axis(overlap, s_idx, axis=1)
-        u_entry = jnp.where(u_valid,
-                            jnp.take_along_axis(entry, s_idx, axis=1), BIG)
     else:
         overlap, entry = _interval_slab(
             grid.aabb_min, grid.aabb_max, o_lo, o_hi, iv_lo, iv_hi,
             t_min, tm_hi)
-        score = jnp.where(overlap, -entry, -jnp.inf)
-        _, u_idx = jax.lax.top_k(score, min(max_u, c))
-        u_valid = jnp.take_along_axis(overlap, u_idx, axis=1)
-        u_entry = jnp.where(u_valid,
-                            jnp.take_along_axis(entry, u_idx, axis=1), BIG)
+        _, s_idx = jax.lax.top_k(jnp.where(overlap, -entry, -jnp.inf),
+                                 min(max_u, c))
+        u_idx = s_idx
+    u_valid = jnp.take_along_axis(overlap, s_idx, axis=1)
+    u_entry = jnp.where(u_valid, jnp.take_along_axis(entry, s_idx, axis=1),
+                        BIG)
     n_valid = jnp.sum(u_valid, axis=1).astype(jnp.int32)
     u_idx = jnp.where(u_valid, u_idx, c)                  # sentinel
-    return u_idx, u_entry, n_valid, ob, db, tmb
+    return u_idx.astype(jnp.int32), u_entry, n_valid
 
 
-def _interval_slab_local(amin, amax, o_lo, o_hi, iv_lo, iv_hi, t_min,
-                         t_max_hi):
-    """_interval_slab with PER-BLOCK boxes: amin/amax [NB, M, 3]."""
-    def prod_bounds(a):
-        c1 = a * iv_lo[:, None, :]
-        c2 = a * iv_hi[:, None, :]
-        return jnp.minimum(c1, c2), jnp.maximum(c1, c2)
+def _phase_b_xla(u_idx, n_valid, ob, db, tmb, soup, t_min, any_hit):
+    """Phase B in plain XLA: chunks of XLA_CHUNK candidates as one dense
+    [NB, B, chunk*K] Moller-Trumbore + reduction per step, for as many
+    steps as the largest candidate count of any block.  Same outputs as
+    ops/pallas_trace.trace_blocks_triton."""
+    nb, n_u = u_idx.shape
+    c, _, k = soup.shape
+    ch = min(XLA_CHUNK, n_u)
+    u_pad = jnp.pad(u_idx, ((0, 0), (0, _round_up(n_u, ch) - n_u)),
+                    constant_values=c)
+    rox, roy, roz = (ob[..., i:i + 1] for i in range(3))    # [NB, B, 1]
+    rdx, rdy, rdz = (db[..., i:i + 1] for i in range(3))
+    rtm = tmb[..., None]
 
-    a_lo = amin - o_hi[:, None, :]
-    a_hi = amin - o_lo[:, None, :]
-    b_lo = amax - o_hi[:, None, :]
-    b_hi = amax - o_lo[:, None, :]
-    t0l1, t0h1 = prod_bounds(a_lo)
-    t0l2, t0h2 = prod_bounds(a_hi)
-    t0_lo = jnp.minimum(t0l1, t0l2)
-    t1l1, t1h1 = prod_bounds(b_lo)
-    t1l2, t1h2 = prod_bounds(b_hi)
-    t1_lo = jnp.minimum(t1l1, t1l2)
-    t0_hi = jnp.maximum(t0h1, t0h2)
-    t1_hi = jnp.maximum(t1h1, t1h2)
-    near_lo = jnp.minimum(t0_lo, t1_lo).max(axis=-1)
-    far_hi = jnp.maximum(t0_hi, t1_hi).min(axis=-1)
-    overlap = (near_lo <= far_hi) & (far_hi >= t_min) & (
-        near_lo <= t_max_hi[:, None])
-    return overlap, jnp.maximum(near_lo, 0.0)
+    def step(uc, carry):
+        best_t, best_flat, occ = carry
+        sl = jax.lax.dynamic_slice_in_dim(u_pad, uc * ch, ch, 1)   # [NB,ch]
+        rows = soup[jnp.minimum(sl, c - 1)]                   # [NB,ch,9,K]
+        rows = jnp.moveaxis(rows, 2, 1).reshape(nb, 9, 1, ch * k)
+        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
+            rows[:, i] for i in range(9))                     # [NB,1,W]
+        slot = uc * ch + jnp.arange(ch)
+        valid = jnp.repeat(slot[None, :] < n_valid[:, None], k,
+                           axis=1)[:, None, :]                # [NB,1,W]
+        px = rdy * e2z - rdz * e2y
+        py = rdz * e2x - rdx * e2z
+        pz = rdx * e2y - rdy * e2x
+        det = px * e1x + py * e1y + pz * e1z
+        inv = jnp.where(jnp.abs(det) > 1e-9, 1.0 / det, 0.0)
+        tx, ty, tz = rox - v0x, roy - v0y, roz - v0z
+        uu = (tx * px + ty * py + tz * pz) * inv
+        qx = ty * e1z - tz * e1y
+        qy = tz * e1x - tx * e1z
+        qz = tx * e1y - ty * e1x
+        vv = (rdx * qx + rdy * qy + rdz * qz) * inv
+        tt = (e2x * qx + e2y * qy + e2z * qz) * inv
+        ok = (valid & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+              & (tt > t_min) & (tt < rtm))                    # [NB,B,W]
+        if any_hit:
+            return best_t, best_flat, occ | jnp.any(ok, axis=-1)
+        tt = jnp.where(ok, tt, BIG)
+        kb = jnp.argmin(tt, axis=-1)                          # [NB,B]
+        tb = jnp.min(tt, axis=-1)
+        better = tb < best_t
+        return (jnp.where(better, tb, best_t),
+                jnp.where(better, uc * ch * k + kb, best_flat), occ)
+
+    # Carry init derived from the (varying) ray data so shard_map's
+    # varying-axis check accepts the loop (see ops/intersect.py).
+    zb = tmb * 0.0                                            # [NB, B]
+    init = (zb + BIG, zb.astype(jnp.int32) - 1, zb > 1.0)
+    n_steps = (jnp.max(n_valid) + ch - 1) // ch
+    best_t, best_flat, occ = jax.lax.fori_loop(0, n_steps, step, init)
+    if any_hit:
+        return occ.astype(jnp.float32), occ.astype(jnp.int32)
+    return best_t, best_flat
 
 
-def pack_soup(grid: ClusterGrid, geometry):
-    """Pack detached cluster triangle data for the Pallas kernel (in-jit
-    fallback when the grid carries no host-packed soup): soup f32[C+1, 16,
-    K] (v0xyz, e1xyz, e2xyz rows + 7 zero-pad rows for 8-sublane DMA
-    alignment) or the k=32 lane-group variant layout, tri i32[C+1, 1, K].
-    """
-    v0, e1, e2 = cluster_tri_soup(grid, jax.tree.map(sg, geometry))
-    c, k = grid.num_clusters, grid.k
-    comp9 = jnp.concatenate([jnp.moveaxis(v0, -1, 1),
-                             jnp.moveaxis(e1, -1, 1),
-                             jnp.moveaxis(e2, -1, 1)], axis=1)  # [C,9,K]
-    tri = jnp.concatenate(
-        [grid.tri_id[:, None, :], jnp.full((1, 1, k), -1, jnp.int32)],
-        axis=0)
-    if k == 32:
-        from ..accel.clusters import pack_soup32
-        return pack_soup32(grid, comp9, jnp), tri
-    comp = jnp.concatenate(
-        [comp9, jnp.zeros((c, 7, k), jnp.float32)], axis=1)  # [C,16,K]
-    soup = jnp.concatenate(
-        [comp, jnp.zeros((1, 16, k), jnp.float32)], axis=0)
-    return soup, tri
-
-
-@partial(jax.jit, static_argnames=("any_hit", "block", "max_u",
-                                   "t_min_static", "interpret", "lean",
-                                   "sort", "chunk"))
-def _impl_pallas(grid: ClusterGrid, geometry, o, d, t_max_arr, *,
-                 t_min_static: float, any_hit: bool, block: int,
-                 max_u: int, interpret: bool = False, lean: bool = False,
-                 sort: bool = False, chunk: int = 4):
-    from .pallas_trace import trace_blocks_pallas
-
+def prepare_blocks(grid: ClusterGrid, o, d, t_max_arr, t_min: float,
+                   block: int, max_u: int, sort: bool):
+    """Everything before phase B: detach, root-box cull, optional
+    direction-bin sort, pad to whole blocks, phase A.  Returns (perm or
+    None, ob f32[NB,B,3], db f32[NB,B,3], tmb f32[NB,B], u_idx, u_entry,
+    n_valid)."""
     n = o.shape[0]
-    t_min = t_min_static
-    k = grid.k
     b = block
     o_sg, d_sg = sg(o), sg(d)
     t_max_arr = _root_cull(grid, o_sg, d_sg, t_min,
                            jnp.asarray(t_max_arr, jnp.float32))
+    perm = None
     if sort:
-        # Direction-scattered streams (NEE shadow rays): stable octant sort
-        # so each block's bundle is sign-coherent; outputs unscramble below.
+        # Direction-scattered streams (bounce and shadow rays): stable bin
+        # sort so each block's bundle is cone-coherent; the caller
+        # unscrambles outputs.
         perm = _octant_perm(d_sg, t_max_arr)
         o_sg, d_sg, t_max_arr = o_sg[perm], d_sg[perm], t_max_arr[perm]
     n_pad = _round_up(n, b)
     pad = n_pad - n
-    o_s = jnp.concatenate([o_sg, jnp.full((pad, 3), 3e30, jnp.float32)])
-    d_s = jnp.concatenate([d_sg, jnp.tile(
-        jnp.array([[1.0, 0.0, 0.0]], jnp.float32), (pad, 1))])
-    tm = jnp.concatenate([t_max_arr, jnp.zeros((pad,), jnp.float32)])
     nb = n_pad // b
+    ob = jnp.concatenate([o_sg, jnp.full((pad, 3), 3e30, jnp.float32)]
+                         ).reshape(nb, b, 3)
+    db = jnp.concatenate([d_sg, jnp.tile(
+        jnp.array([[1.0, 0.0, 0.0]], jnp.float32), (pad, 1))]
+    ).reshape(nb, b, 3)
+    tmb = jnp.concatenate([t_max_arr, jnp.zeros((pad,), jnp.float32)]
+                          ).reshape(nb, b)
+    u_idx, u_entry, n_valid = _select_candidates(grid, ob, db, tmb, t_min,
+                                                 max_u)
+    return perm, ob, db, tmb, u_idx, u_entry, n_valid
 
-    u_idx, u_entry, n_valid, ob, db, tmb = _select_candidates(
-        grid, o_s, d_s, tm, nb, b, t_min, max_u)
-    # The kernel's chunked DMA refetches the LAST candidate slot into any
-    # tail slots of a partial chunk; winner decode (flat // k) then needs
-    # every slot index < n_u to be addressable, so pad the candidate list
-    # to a whole number of chunks with the sentinel cluster.
-    if grid.k == 32:
-        # lane-group layout: 4 sub-clusters per 128-lane row, chunk a
-        # multiple of 4 (ch=16 -> the 512-lane wide-chunk math).  Pad the
-        # candidate list to whole chunks even when it is shorter (tiny
-        # scenes).
-        chunk = max(4, (chunk // 4) * 4)
-        n_u = u_idx.shape[1]
-        n_u_pad = _round_up(n_u, chunk)
-    else:
-        n_u = u_idx.shape[1]
-        n_u_pad = _round_up(n_u, min(chunk, n_u))
-    if n_u_pad > n_u:
-        u_idx = jnp.pad(u_idx, ((0, 0), (0, n_u_pad - n_u)),
-                        constant_values=grid.num_clusters)
-        u_entry = jnp.pad(u_entry, ((0, 0), (0, n_u_pad - n_u)),
-                          constant_values=BIG)
-    if grid.soup is not None:
-        soup, tri_packed = grid.soup, grid.tri_packed
-    else:
-        soup, tri_packed = pack_soup(grid, geometry)
-    o_comp = jnp.moveaxis(ob, -1, 0)    # [3, NB, B]
-    d_comp = jnp.moveaxis(db, -1, 0)
 
-    best_t, best_flat = trace_blocks_pallas(
-        u_idx, o_comp, d_comp, tmb, soup, tri_packed,
-        t_min=t_min, any_hit=any_hit, interpret=interpret,
-        n_valid=n_valid, entry=u_entry, chunk=chunk, k=grid.k)
+@partial(jax.jit, static_argnames=("any_hit", "block", "max_u",
+                                   "t_min_static", "sort", "kernel", "lean",
+                                   "interpret"))
+def _impl(grid: ClusterGrid, geometry, o, d, t_max_arr, *,
+          t_min_static: float, any_hit: bool, block: int, max_u: int,
+          sort: bool, kernel: str, lean: bool, interpret: bool):
+    n = o.shape[0]
+    t_min = t_min_static
+    k = grid.k
+    perm, ob, db, tmb, u_idx, u_entry, n_valid = prepare_blocks(
+        grid, o, d, t_max_arr, t_min, block, max_u, sort)
+    nb, b = tmb.shape
+    n_pad = nb * b
+    soup = grid.soup if grid.soup is not None else pack_soup(grid, geometry)
+    if kernel == "triton":
+        from .pallas_trace import trace_blocks_triton
+        best_t, best_flat = trace_blocks_triton(
+            u_idx, n_valid, u_entry, ob, db, tmb, soup, t_min=t_min,
+            any_hit=any_hit, interpret=interpret)
+    else:
+        best_t, best_flat = _phase_b_xla(u_idx, n_valid, ob, db, tmb, soup,
+                                         t_min, any_hit)
 
     if any_hit:
         occ = (best_flat > 0).reshape(n_pad)[:n]
@@ -511,21 +329,17 @@ def _impl_pallas(grid: ClusterGrid, geometry, o, d, t_max_arr, *,
             occ = jnp.zeros((n,), bool).at[perm].set(occ)
         return occ
 
-    # Winner decode via FLAT 1-D gathers (2-D take_along_axis gathers cost
-    # ~5 ms per 262k lanes on v5e; flat-index forms are coherent and cheap).
+    # Winner decode via flat 1-D gathers: flat = slot * K + lane.
     found = best_flat >= 0
     flat = jnp.maximum(best_flat, 0)
-    n_u_p = u_idx.shape[1]
+    n_u = u_idx.shape[1]
     blk = jnp.arange(nb, dtype=jnp.int32)[:, None]
-    cl_win = u_idx.reshape(-1)[blk * n_u_p + flat // k]
-    cl_win = jnp.minimum(cl_win, grid.num_clusters - 1)
-    tri_flat = grid.tri_id.reshape(-1)
-    tri = jnp.where(found, tri_flat[cl_win * k + flat % k], -1)
-    tri = tri.reshape(n_pad)[:n]
+    cl_win = jnp.minimum(u_idx.reshape(-1)[blk * n_u + flat // k],
+                         grid.num_clusters - 1)
+    tri = jnp.where(found, grid.tri_id.reshape(-1)[cl_win * k + flat % k],
+                    -1).reshape(n_pad)[:n]
     t_k = best_t.reshape(n_pad)[:n]
     if sort:
-        # Back to caller order; the (attached) finish below then uses the
-        # caller's o/d directly.
         tri = jnp.full((n,), -1, jnp.int32).at[perm].set(tri)
         t_k = jnp.full((n,), BIG, jnp.float32).at[perm].set(t_k)
     found_n = tri >= 0
@@ -533,12 +347,12 @@ def _impl_pallas(grid: ClusterGrid, geometry, o, d, t_max_arr, *,
     if lean:
         # The dense integrator re-derives attached (u, v, t) in
         # shade_surface from its per-triangle attribute row, so the
-        # tracer's own re-intersection would be pure duplicate work
-        # (~4 ray-sized gathers per trace).  Kernel t is detached.
+        # tracer's own re-intersection would be duplicate work.  t is the
+        # detached phase-B distance.
         zero = jnp.zeros((n,), jnp.float32)
         return Hit(t=jnp.where(found_n, t_k, BIG), tri=tri, u=zero, v=zero)
 
-    # Differentiable finish (same as _impl): attached t/u/v.
+    # Differentiable finish on the winning triangle: attached t/u/v.
     safe = jnp.maximum(tri, 0)
     idx = geometry.indices[safe]
     p = geometry.positions
@@ -558,27 +372,32 @@ def _impl_pallas(grid: ClusterGrid, geometry, o, d, t_max_arr, *,
                v=jnp.where(found_n, vq, 0.0))
 
 
-def intersect_blocks_pallas(grid: ClusterGrid, geometry, o, d,
-                            t_min: float = 1e-4, t_max=BIG,
-                            any_hit: bool = False, block: int = 256,
-                            max_u: int = 48, interpret: bool = False,
-                            lean: bool = False, sort: bool = False,
-                            chunk: int = 4):
-    """Pallas-kernel block tracer (falls back to interpret=True off-TPU).
+def intersect_blocks(grid: ClusterGrid, geometry, o, d, t_min: float = 1e-4,
+                     t_max=BIG, any_hit: bool = False, block: int = 512,
+                     max_u: int = 48, sort: bool = False,
+                     kernel: str = "xla", lean: bool = False,
+                     interpret: bool = False):
+    """Closest-hit (Hit) or any-hit (bool[N]) via the block-stream tracer.
 
-    lean=True returns a detached Hit (kernel t, u = v = 0) for callers that
-    re-derive attached intersection data themselves (integrator/shading.py).
-    sort=True stable-sorts rays by direction octant before blocking (and
-    unscrambles outputs) — for direction-scattered streams like NEE shadow
-    rays, whose blocks are otherwise sign-incoherent and cull nothing.
+    kernel: phase B implementation, "xla" (any backend) or "triton" (the
+      Pallas kernel; compiles for NVIDIA GPUs only — elsewhere it raises
+      unless `interpret=True`, which runs it in the Pallas interpreter).
+    lean: return a detached Hit (phase-B t, u = v = 0) for callers that
+      re-derive attached intersection data themselves.
+    sort: stable-sort rays by direction bin before blocking (outputs come
+      back in caller order) — for direction-scattered streams.
     """
-    if not interpret and grid.k != 32 and grid.k % 128 != 0:
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown phase-B kernel {kernel!r}; "
+                         f"expected one of {KERNELS}")
+    if kernel == "triton" and not interpret and jax.default_backend() != "gpu":
         raise ValueError(
-            f"Pallas tracer needs cluster size k == 32 (lane-group variant "
-            f"layout) or k % 128 == 0 (VMEM DMA tiling); got k={grid.k}.")
+            f"the Triton block tracer compiles for NVIDIA GPUs only; the "
+            f"default backend is {jax.default_backend()!r} (use kernel='xla', "
+            f"or interpret=True to run it in the Pallas interpreter)")
     n = o.shape[0]
     t_max_arr = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (n,))
-    return _impl_pallas(grid, geometry, o, d, t_max_arr,
-                        t_min_static=float(t_min), any_hit=any_hit,
-                        block=block, max_u=max_u, interpret=interpret,
-                        lean=lean, sort=sort, chunk=chunk)
+    return _impl(grid, geometry, o, d, t_max_arr,
+                 t_min_static=float(t_min), any_hit=any_hit, block=block,
+                 max_u=max_u, sort=sort, kernel=kernel, lean=lean,
+                 interpret=interpret)

@@ -1,166 +1,23 @@
-"""Fused row-gather for TPU: out[i] = table[idx[i]] as an in-VMEM one-hot
-matmul, with a matmul transpose-rule so it is differentiable w.r.t. table.
+"""Row gathers with a zero fill: out[i] = table[idx[i]].
 
-Why this exists: XLA-TPU lowers `table[idx]` for [N]-sized idx to a custom
-gather fusion that runs ~15 GB/s effective (~1 ms per 262k rows regardless
-of table size) — and the path tracer does dozens per frame.  For tables that
-fit in VMEM (T <= 2048 rows — material/emitter/triangle-attribute tables),
-a Pallas kernel that builds the one-hot selection matrix IN VMEM and
-contracts it on the MXU never materializes anything ray-sized to HBM except
-idx (4 B/row) and the output rows, and runs ~10-20x faster.
-
-Exactness: the one-hot has exactly one 1.0 per row, so the f32 matmul
-(HIGHEST precision: bf16x3 decomposition on the MXU) reproduces table rows
-BIT-EXACTLY (each output element is sum of the 3 exact splits of one f32).
-Tests assert array_equal vs native gather.
-
-Semantics: out[i] = table[idx[i]] for idx in [0, T); rows with idx outside
-[0, T) return ZEROS (handy for -1 miss sentinels — callers need no clamp).
-
-VJP: d_table = segment-sum of cotangents = one_hot(idx)^T @ ct — the SAME
-kernel shape, accumulated across ray blocks on the sequential TPU grid.
+Semantics: rows with idx outside [0, T) return ZEROS (handy for -1 miss
+sentinels — callers need no clamp).  The gather is XLA's own: callers
+consolidate many per-attribute lookups into ONE wide-row fetch of a packed
+table (integrator/shading.py, models/lights.py, ops/texture.py), and XLA
+fuses the masking into the consumers.  The VJP is XLA's scatter-add.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-# Largest table (rows) kept resident in VMEM; larger tables fall back to
-# the native XLA gather.
-MAX_VMEM_ROWS = 2048
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _block_for(t: int) -> int:
-    """Ray-block lane count: keep the [B, T] one-hot around ~0.5 MB."""
-    return max(128, min(1024, _round_up((1 << 17) // max(t, 1), 128)))
-
-
-def _fwd_kernel(idx_ref, table_ref, out_ref):
-    """[1,1,B] idx + [T, W] table -> [B, W] rows (zeros outside [0, T))."""
-    t = table_ref.shape[0]
-    b = idx_ref.shape[2]
-    idx = idx_ref[0, 0, :][:, None]                         # [B, 1]
-    lane = jax.lax.broadcasted_iota(jnp.int32, (b, t), 1)
-    onehot = (lane == idx).astype(jnp.float32)              # [B, T]
-    out_ref[...] = jax.lax.dot(
-        onehot, table_ref[...],
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32)
-
-
-def _bwd_kernel(idx_ref, ct_ref, dtable_ref):
-    """Accumulate one_hot(idx)^T @ ct into d_table across the grid."""
-    t = dtable_ref.shape[0]
-    b = idx_ref.shape[2]
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        dtable_ref[...] = jnp.zeros_like(dtable_ref)
-
-    idx = idx_ref[0, 0, :][None, :]                         # [1, B]
-    row = jax.lax.broadcasted_iota(jnp.int32, (t, b), 0)
-    onehot_t = (row == idx).astype(jnp.float32)             # [T, B]
-    dtable_ref[...] += jax.lax.dot(
-        onehot_t, ct_ref[...],
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _take_fwd(table, idx, *, interpret: bool):
-    n = idx.shape[0]
-    t, w = table.shape
-    b = _block_for(t)
-    n_pad = _round_up(n, b)
-    idx_p = jnp.concatenate(
-        [idx.astype(jnp.int32), jnp.full((n_pad - n,), -1, jnp.int32)])
-    nb = n_pad // b
-    out = pl.pallas_call(
-        _fwd_kernel,
-        grid=(nb,),
-        in_specs=[pl.BlockSpec((1, 1, b), lambda g: (g, 0, 0),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((t, w), lambda g: (0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((b, w), lambda g: (g, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_pad, w), jnp.float32),
-        interpret=interpret,
-    )(idx_p.reshape(nb, 1, b), table)
-    return out[:n]
-
-
-@functools.partial(jax.jit, static_argnames=("t", "interpret"))
-def _take_bwd(idx, ct, *, t: int, interpret: bool):
-    n, w = ct.shape
-    b = _block_for(t)
-    n_pad = _round_up(n, b)
-    idx_p = jnp.concatenate(
-        [idx.astype(jnp.int32), jnp.full((n_pad - n,), -1, jnp.int32)])
-    ct_p = jnp.concatenate(
-        [ct, jnp.zeros((n_pad - n, w), jnp.float32)])
-    nb = n_pad // b
-    return pl.pallas_call(
-        _bwd_kernel,
-        grid=(nb,),
-        in_specs=[pl.BlockSpec((1, 1, b), lambda g: (g, 0, 0),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((b, w), lambda g: (g, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((t, w), lambda g: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((t, w), jnp.float32),
-        interpret=interpret,
-    )(idx_p.reshape(nb, 1, b), ct_p)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def _take_rows_pallas(table, idx, interpret):
-    return _take_fwd(table, idx, interpret=interpret)
-
-
-def _take_rows_pallas_fwd(table, idx, interpret):
-    return _take_fwd(table, idx, interpret=interpret), (idx, table.shape[0])
-
-
-def _take_rows_pallas_bwd(interpret, res, ct):
-    idx, t = res
-    return _take_bwd(idx, ct, t=t, interpret=interpret), None
-
-
-_take_rows_pallas.defvjp(_take_rows_pallas_fwd, _take_rows_pallas_bwd)
-
-
-def take_rows(table: jnp.ndarray, idx: jnp.ndarray,
-              force: str | None = None) -> jnp.ndarray:
+def take_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """out[i] = table[idx[i]]; zeros where idx is out of range.
 
-    table f32[T, W], idx i32-like[N].  Uses the fused Pallas kernel on TPU
-    for T <= MAX_VMEM_ROWS, the native XLA gather elsewhere (`force` can pin
-    "pallas"/"native"/"interpret" for tests).
+    table f32[T, W], idx i32-like[N].
     """
     t = table.shape[0]
-    backend = force
-    if backend is None:
-        # Measured (v5e, Cornell frame): the pallas kernel wins in isolation
-        # but its custom-call boundary breaks XLA fusion around every call
-        # site (765 ms vs 82 ms device time per frame) — native gather of
-        # ONE consolidated wide row is the fast default; the kernel stays
-        # available via force="pallas" for standalone/huge-fanout uses.
-        backend = "native"
-    if backend == "pallas":
-        return _take_rows_pallas(table, idx, False)
-    if backend == "interpret":
-        return _take_rows_pallas(table, idx, True)
     safe = jnp.clip(idx, 0, t - 1)
     rows = table[safe]
     good = ((idx >= 0) & (idx < t))[:, None]

@@ -1,17 +1,17 @@
 """Ray-triangle intersection ops (jnp reference path + chunked closest-hit).
 
-This is the TPU replacement for the reference's fixed-function
+This is the replacement for the reference's fixed-function
 rasterizer+depth-test visibility (geometry pass,
 `src/pbr_engine/engine/pbr/PbrRenderSystem.cpp:367-465`): instead of
 rasterizing triangles into a G-buffer, rays query the triangle soup directly
 (Moller-Trumbore).  The brute-force closest-hit below is the correctness
 oracle for the BVH (accel/) and is itself the production path for small
 scenes (Cornell-box class), where testing all T triangles per ray in a
-single fused VPU sweep beats any tree walk.
+single fused elementwise sweep beats any tree walk.
 
-Design notes for TPU:
+Design notes:
   * rays x tris is evaluated in TRIANGLE CHUNKS with a running best-hit so
-    peak memory is N_rays x CHUNK, fully fused elementwise work (VPU), no
+    peak memory is N_rays x CHUNK, fully fused elementwise work, no
     data-dependent control flow.
   * everything is differentiable: hit t/u/v carry gradients to vertex
     positions (the continuous part of the visibility function).
@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 BIG = 1e30
 

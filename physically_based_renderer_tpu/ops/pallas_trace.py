@@ -1,41 +1,36 @@
-"""Pallas TPU kernel: block-stream closest-hit / any-hit tracer.
+"""Pallas kernel (Triton route): phase B of the block tracer.
 
-The speed-of-light version of ops/blocktrace.py's phase B.  The XLA
-formulation materializes [NB, B, U*K, 3] Moller-Trumbore intermediates to
-HBM (~GBs of traffic per frame); this kernel keeps everything in VMEM:
+ops/blocktrace.py's phase A gives every ray block of B rays a nearest-first
+list of candidate clusters.  Phase B intersects the block's rays with the
+triangles of those clusters.  The plain XLA version (blocktrace._phase_b_xla)
+scans every candidate of every block; this kernel walks the list per tile of
+rays and stops early, which XLA's static shapes cannot express:
 
-  grid = (NB,)  — one program per ray block
-  scalar-prefetch: per-block candidate cluster list  u_idx  i32[NB * U],
-  per-block valid-candidate count nv i32[NB], and the conservative
-  nearest-entry distance of each candidate  entry  f32[NB * U]
+  grid = (NB * B / R,)  -- one program per tile of R rays; tiles of the same
+                           ray block share its candidate list
   per program:
-    * ray block (o, d components + t_max) lives in VMEM           [B]
-    * WHILE loop over CHUNKS of CH candidates (nearest-first),
-      DOUBLE-BUFFERED: the CH async DMAs of a chunk start together so their
-      latencies overlap, and each chunk lands side by side in one
-      [9, CH*K] buffer (cluster i at lane offset i*K — K = 128 keeps DMA
-      lane alignment) so the math is plain 2-D [B, CH*K] VPU work with
-      full 8x128 vreg utilization.  A 1-cluster loop was DMA-latency-bound
-      (~0.5 us of math per ~2 us wait); CH = 4 gives ~2 us of math per
-      overlapped wait.
-    * dense [B, CH*K] Moller-Trumbore on the VPU, running (min t, argmin)
-    * EARLY EXIT: stops at the block's true candidate demand (nv), and —
-      for closest-hit — as soon as every live lane's best hit is nearer
-      than the next chunk's conservative entry (candidates are sorted by
-      entry, so no later cluster can improve); for any-hit, as soon as
-      every live lane is occluded.
-  outputs: best_t f32[NB, B], best_flat i32[NB, B] (u * K + k winner), or
-  an occlusion bitmask for any-hit.
+    * the tile's rays (origin, direction, t_max) are loaded once    [R]
+    * a loop over the block's candidates j < n_valid, nearest first:
+        - the cluster id is loaded from the candidate row, its K triangles
+          from the soup ([C, 9, K] v0/e1/e2 component rows, a few MB that
+          stay in L2), in sub-tiles of KT triangles;
+        - dense [R, KT] Moller-Trumbore, running (min t, argmin) per ray or
+          an occlusion flag (any-hit);
+        - EARLY EXIT, closest hit: once every live ray's min(best t, t_max)
+          lies before the next candidate's conservative entry distance
+          (candidates are sorted by entry, so no later cluster can win);
+          any-hit: once every live ray is occluded, or the next entry lies
+          beyond the t_max of every ray still open.
+  outputs: best_t f32[N], best_flat i32[N] (j * K + k, decoded to a
+  triangle id by the caller), or the occlusion flag for any-hit.
 
-Padding and sentinel clusters need no triangle-id mask in the kernel: their
-soup rows are degenerate (v0 = 2e30, e1 = e2 = 0 — accel/clusters.py), so
-det = 0 exactly, the masked inverse is 0, and the candidate t = 0 always
-fails `t > t_min` (t_min >= 0).  Triangle ids are decoded from the winner
-index in XLA afterwards (ops/blocktrace.py), halving the kernel's DMAs.
+Padding triangles need no mask: their soup rows are degenerate (v0 = 2e30,
+e1 = e2 = 0), so det = 0, the masked inverse is 0, and t = 0 fails
+`t > t_min` (t_min >= 0).  Dead rays carry t_max = 0 and take no part in
+the exit tests.
 
-Candidate selection (interval slab + top_k) stays in XLA (ops/blocktrace),
-which also does the differentiable winner re-intersection.  Invalid
-candidate slots point at a sentinel cluster with a degenerate soup row.
+The kernel compiles for NVIDIA GPUs only.  `interpret=True` runs the same
+program on any backend, which is how the CPU tests run it.
 """
 
 from __future__ import annotations
@@ -45,301 +40,158 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 BIG = 1e30
-CHUNK = 4  # candidate clusters fetched + intersected per loop iteration
+
+# Tile: R rays x KT triangles per step, num_warps warps per program.  Chosen
+# by the sweep in PERF.md (helmet frame on one H100); R must divide the
+# tracer's ray block and KT the cluster width.
+RAYS_PER_PROGRAM = 16
+K_TILE = 32
+NUM_WARPS = 4
+NUM_STAGES = 1
 
 
-def _mt_kernel_body(u_ref, nv_ref, entry_ref, ox, oy, oz, dx, dy, dz, tmax,
-                    soup_hbm,
-                    best_t_out, best_flat_out,
-                    soup_buf, soup_sem,
-                    *, n_u: int, k: int, ch: int, t_min: float,
-                    any_hit: bool, k32: bool = False):
-    g = pl.program_id(0)
-    b = ox.shape[2]
+def _mt(rays, soup_ref, base, kk, k, kt, t_min):
+    """Moller-Trumbore of R rays against KT triangles -> (t, ok) [R, KT]."""
+    rox, roy, roz, rdx, rdy, rdz, rtm = rays
+    rows = [soup_ref[pl.ds(base + c * k + kk, kt)][None, :] for c in range(9)]
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rows
+    px = rdy * e2z - rdz * e2y
+    py = rdz * e2x - rdx * e2z
+    pz = rdx * e2y - rdy * e2x
+    det = px * e1x + py * e1y + pz * e1z
+    inv = jnp.where(jnp.abs(det) > 1e-9, 1.0 / det, 0.0)
+    tx = rox - v0x
+    ty = roy - v0y
+    tz = roz - v0z
+    uu = (tx * px + ty * py + tz * pz) * inv
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    vv = (rdx * qx + rdy * qy + rdz * qz) * inv
+    tt = (e2x * qx + e2y * qy + e2z * qz) * inv
+    ok = ((uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+          & (tt > t_min) & (tt < rtm))
+    return tt, ok
+
+
+def _kernel(u_ref, nv_ref, entry_ref, ox, oy, oz, dx, dy, dz, tmax, soup_ref,
+            t_out, flat_out, *, n_u, k, kt, tiles_per_block, t_min, any_hit,
+            early_exit):
+    g = pl.program_id(0) // tiles_per_block
+    r = ox.shape[0]
+    # Carries and outputs are [R]; the [R, 1] columns broadcast against
+    # the [1, KT] triangle rows.
+    rtm = tmax[...]
+    rays = tuple(ref[...][:, None] for ref in (ox, oy, oz, dx, dy, dz, tmax))
+    live = rtm > 0.0
     nv = nv_ref[g]
-    n_chunks = (nv + ch - 1) // ch
-    nct = n_u // ch           # entry_ref holds one entry per CHUNK
-    w = ch * k
+    row = g * n_u
 
-    # Rays: [1, 1, B] rows -> [B, 1] columns for [B, CH*K] broadcasts.
-    rox = ox[0, 0, :][:, None]
-    roy = oy[0, 0, :][:, None]
-    roz = oz[0, 0, :][:, None]
-    rdx = dx[0, 0, :][:, None]
-    rdy = dy[0, 0, :][:, None]
-    rdz = dz[0, 0, :][:, None]
-    rtm = tmax[0, 0, :][:, None]
-    live = rtm > 0.0          # padded lanes carry t_max = 0
+    def next_entry(j):
+        nxt = jnp.minimum(j + 1, n_u - 1)
+        return jnp.where(j + 1 < nv, entry_ref[row + nxt], BIG)
 
-    def dma_soup(slot, i, u):
-        cl = u_ref[g * n_u + u]
-        if k32:
-            # K=32 sub-clusters: fetch lane-group VARIANT i%4 (an aligned
-            # [16, 128] tile; see accel/clusters.pack_soup32) into sublane
-            # block i.  Lane-offset destinations are not DMA-able on TPU,
-            # which is exactly what the 4-variant storage works around.
-            # With ch > 4 (the r5 wide-chunk layout) candidate i lands in
-            # lane GROUP i//4 at assembly time; here it just takes sublane
-            # block i of the chunk buffer.
-            return pltpu.make_async_copy(
-                soup_hbm.at[cl * 4 + (i % 4)],
-                soup_buf.at[slot, pl.ds(i * 16, 16), :],
-                soup_sem.at[slot, i])
-        return pltpu.make_async_copy(
-            soup_hbm.at[cl],
-            soup_buf.at[slot, :, pl.ds(i * k, k)],
-            soup_sem.at[slot, i])
-
-    def start_chunk(slot, j):
-        # Start all CH copies of chunk j together; slots beyond n_u refetch
-        # the last candidate (sentinel-padded, self-rejecting).
-        for i in range(ch):
-            u = jnp.minimum(j * ch + i, n_u - 1)
-            dma_soup(slot, i, u).start()
-
-    def wait_chunk(slot):
-        for i in range(ch):
-            dma_soup(slot, i, 0).wait()
-
-    @pl.when(n_chunks > 0)
-    def _():
-        start_chunk(0, 0)
-
-    def cond(carry):
-        j, _best_t, _best_flat, _occ, done = carry
-        return (j < n_chunks) & (done == 0)
-
-    def chunk_body(carry):
-        j, best_t, best_flat, occ, done = carry
-        slot = j % 2
-        nxt = (j + 1) % 2
-
-        @pl.when(j + 1 < n_chunks)
-        def _():
-            start_chunk(nxt, j + 1)
-
-        wait_chunk(slot)
-
-        def mt_rows(rows):
-            """Moller-Trumbore for one set of component rows [1, Wg] ->
-            (tt, ok) each [B, Wg]."""
-            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rows
-            px = rdy * e2z - rdz * e2y
-            py = rdz * e2x - rdx * e2z
-            pz = rdx * e2y - rdy * e2x
-            det = px * e1x + py * e1y + pz * e1z
-            inv = jnp.where(jnp.abs(det) > 1e-9, 1.0 / det, 0.0)
-            tx = rox - v0x
-            ty = roy - v0y
-            tz = roz - v0z
-            uu = (tx * px + ty * py + tz * pz) * inv
-            qx = ty * e1z - tz * e1y
-            qy = tz * e1x - tx * e1z
-            qz = tx * e1y - ty * e1x
-            vv = (rdx * qx + rdy * qy + rdz * qz) * inv
-            tt = (e2x * qx + e2y * qy + e2z * qz) * inv
-            ok = ((uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-                  & (tt > t_min) & (tt < rtm))
-            return tt, ok
-
-        if k32:
-            # Assemble per GROUP of 4 consecutive sub-clusters: variant
-            # i%4 is zero outside its 32-lane group, so each group sums to
-            # full [1, 128] component rows, and the MT math + winner
-            # reduction run per group on plain [B, 128] tiles (no lane
-            # concatenation — Mosaic has no cross-group shape cast).
-            # Group gi covers flat lanes [gi*128, gi*128+128), so the
-            # generic flat//k winner decode is unchanged.
-            def group_rows(gi):
-                rows = []
-                for cc in range(9):
-                    acc = soup_buf[slot, (4 * gi) * 16 + cc, :]
-                    for i in range(1, 4):
-                        acc = acc + soup_buf[slot,
-                                             (4 * gi + i) * 16 + cc, :]
-                    rows.append(acc[None, :])
-                return rows
-
-            results = [mt_rows(group_rows(gi)) for gi in range(ch // 4)]
-        else:
-            rows = [soup_buf[slot, cc, :][None, :] for cc in range(9)]
-            results = [mt_rows(rows)]
-
+    def body(carry):
+        j, best_t, best_flat, occ, _ = carry
+        base = u_ref[row + j] * (9 * k)
         if any_hit:
-            for tt, ok in results:
-                occ = jnp.maximum(
-                    occ,
-                    jnp.max(ok.astype(jnp.int32), axis=1, keepdims=True))
-            # exit once every live lane is occluded, OR once the next
-            # candidate's conservative entry lies beyond every still-
-            # unoccluded lane's t_max (candidates are entry-sorted, so no
-            # later cluster can occlude within range) — the second clause
-            # is what lets sky-lit shadow rays stop at their root-box exit
-            # instead of scanning the whole candidate list.
+            for kk in range(0, k, kt):
+                _, ok = _mt(rays, soup_ref, base, kk, k, kt, t_min)
+                occ = jnp.maximum(occ, jnp.max(ok.astype(jnp.int32), axis=1))
             open_ = live & (occ == 0)
-            rem = jnp.max(jnp.where(open_, 1, 0))
+            rem = jnp.max(open_.astype(jnp.int32))
             rem_tmax = jnp.max(jnp.where(open_, rtm, 0.0))
-            nxt_c = jnp.minimum(j + 1, nct - 1)
-            nxt_entry = jnp.where((j + 1) * ch < nv,
-                                  entry_ref[g * nct + nxt_c], BIG)
-            done = jnp.maximum(1 - rem,
-                               (nxt_entry > rem_tmax).astype(jnp.int32))
-            return j + 1, best_t, best_flat, occ, done
-        # Per-group running min + argmin, combined at [B, 1] width.
-        tmin_row = jnp.full((b, 1), BIG, jnp.float32)
-        kmin = jnp.full((b, 1), 0, jnp.int32)
-        for gi, (tt, ok) in enumerate(results):
-            wg = tt.shape[1]
-            tt = jnp.where(ok, tt, BIG)
-            tmin_g = jnp.min(tt, axis=1, keepdims=True)      # [B,1]
-            lane = jax.lax.broadcasted_iota(jnp.int32, (b, wg), 1)
-            kmin_g = jnp.min(jnp.where(tt <= tmin_g, lane, wg), axis=1,
-                             keepdims=True)
-            better_g = tmin_g < tmin_row
-            tmin_row = jnp.where(better_g, tmin_g, tmin_row)
-            kmin = jnp.where(better_g, gi * wg + kmin_g, kmin)
-        better = tmin_row < best_t
-        best_t = jnp.where(better, tmin_row, best_t)
-        best_flat = jnp.where(better, j * w + kmin, best_flat)
-        # exit once no later candidate (sorted by conservative entry) can
-        # beat any live lane's current best hit; entry_ref is per-CHUNK
-        # (the entry of each chunk's first = nearest candidate).  Each
-        # lane's relevance is capped by min(best_t, t_max): a lane that
-        # misses everything (best = BIG) still cannot accept hits past its
-        # root-box exit, so it must not hold the block hostage through the
-        # whole candidate list (silhouette-miss lanes were doing exactly
-        # that — 3.5 -> ~2 effective chunks on the helmet camera pass).
-        worst = jnp.max(jnp.where(live, jnp.minimum(best_t, rtm), 0.0))
-        nxt_c = jnp.minimum(j + 1, nct - 1)
-        nxt_entry = jnp.where((j + 1) * ch < nv,
-                              entry_ref[g * nct + nxt_c], BIG)
-        done = (worst <= nxt_entry).astype(jnp.int32)
+            done = (rem == 0) | (next_entry(j) > rem_tmax)
+        else:
+            lane = jax.lax.broadcasted_iota(jnp.int32, (r, kt), 1)
+            for kk in range(0, k, kt):
+                tt, ok = _mt(rays, soup_ref, base, kk, k, kt, t_min)
+                tt = jnp.where(ok, tt, BIG)
+                tmin = jnp.min(tt, axis=1)
+                kmin = jnp.min(jnp.where(tt <= tmin[:, None], lane, kt),
+                               axis=1)
+                better = tmin < best_t
+                best_t = jnp.where(better, tmin, best_t)
+                best_flat = jnp.where(better, j * k + kk + kmin, best_flat)
+            worst = jnp.max(jnp.where(live, jnp.minimum(best_t, rtm), 0.0))
+            done = worst <= next_entry(j)
+        if not early_exit:
+            # Never true, but traced: the Triton lowering cannot carry a
+            # literal through a loop.
+            done = j < 0
         return j + 1, best_t, best_flat, occ, done
 
-    init = (0,
-            jnp.full((b, 1), BIG, jnp.float32),
-            jnp.full((b, 1), -1, jnp.int32),
-            jnp.zeros((b, 1), jnp.int32),
-            0)
-    j_f, best_t, best_flat, occ, _ = jax.lax.while_loop(cond, chunk_body,
-                                                        init)
-
-    # Drain the prefetch left in flight by an early exit.  chunk_body starts
-    # the copies for chunk j+1 (when j+1 < n_chunks) BEFORE `done` is known,
-    # so an early exit leaves those DMAs outstanding.  Scratch buffers and
-    # semaphores persist across the sequential grid: an un-waited semaphore
-    # signal would satisfy the NEXT grid step's wait before its own copy
-    # lands (stale/corrupt triangle data).  The exited carry holds
-    # j_f = j_exit + 1, which is exactly the prefetched chunk when
-    # j_f < n_chunks.
-    @pl.when(j_f < n_chunks)
-    def _():
-        wait_chunk(j_f % 2)
-
+    init = (jnp.int32(0),
+            jnp.full((r,), BIG, jnp.float32),
+            jnp.full((r,), -1, jnp.int32),
+            jnp.zeros((r,), jnp.int32),
+            jnp.zeros((), jnp.bool_))
+    # A while loop, so the exit ends the program's work (a counted loop
+    # with the rest skipped by a branch measured slower, PERF.md).
+    _, best_t, best_flat, occ, _ = jax.lax.while_loop(
+        lambda c: (c[0] < nv) & jnp.logical_not(c[4]), body, init)
     if any_hit:
-        best_t_out[0, 0, :] = occ[:, 0].astype(jnp.float32)
-        best_flat_out[0, 0, :] = occ[:, 0]
+        t_out[...] = occ.astype(jnp.float32)
+        flat_out[...] = occ
     else:
-        best_t_out[0, 0, :] = best_t[:, 0]
-        best_flat_out[0, 0, :] = best_flat[:, 0]
+        t_out[...] = best_t
+        flat_out[...] = best_flat
 
 
-@functools.partial(jax.jit, static_argnames=("t_min", "any_hit",
-                                             "interpret", "chunk", "k"))
-def trace_blocks_pallas(u_idx, o_comp, d_comp, t_max, soup, tri_ids, *,
-                        t_min: float = 1e-4, any_hit: bool = False,
-                        interpret: bool = False, n_valid=None, entry=None,
-                        chunk: int = CHUNK, k: int | None = None):
-    """Run the kernel.
+@functools.partial(jax.jit, static_argnames=(
+    "t_min", "any_hit", "interpret", "rays_per_program", "k_tile",
+    "num_warps", "early_exit"))
+def trace_blocks_triton(u_idx, n_valid, entry, o, d, t_max, soup, *,
+                        t_min: float, any_hit: bool, interpret: bool = False,
+                        rays_per_program: int = RAYS_PER_PROGRAM,
+                        k_tile: int = K_TILE, num_warps: int = NUM_WARPS,
+                        early_exit: bool = True):
+    """Phase B over blocked rays.
 
-    u_idx   i32[NB, U]     candidate cluster per block (sentinel = C)
-    o_comp  f32[3, NB, B]  ray origins, component-major
-    d_comp  f32[3, NB, B]  ray directions
-    t_max   f32[NB, B]
-    soup    f32[C+1, 16, K] packed v0/e1/e2 component rows per cluster, OR
-            f32[(C+1)*4, 16, 128] lane-group variants when k == 32
-            (accel/clusters.pack_soup32)
-    tri_ids i32[C+1, 1, K] unused by the kernel (decode happens in XLA);
-                           kept in the signature for call-site symmetry
-    n_valid i32[NB]        number of real (non-sentinel) candidates
-    entry   f32[NB, U]     conservative nearest entry-t per candidate
-                           (only chunk-start entries are shipped to SMEM)
-    k       cluster capacity; defaults to soup.shape[2] (required for the
-            k=32 variant layout, whose soup rows are 128 lanes wide)
+    u_idx   i32[NB, U]   candidate clusters per ray block, nearest first
+    n_valid i32[NB]      number of real candidates per block
+    entry   f32[NB, U]   conservative entry distance of each candidate
+    o, d    f32[NB, B, 3] rays (detached), t_max f32[NB, B] (0 = dead ray)
+    soup    f32[C, 9, K] v0/e1/e2 component rows per cluster
 
-    Returns (best_t f32[NB, B], best_flat i32[NB, B]); for any_hit,
-    best_flat is the 0/1 occlusion mask.
+    Returns (best_t f32[NB, B], best_flat i32[NB, B]); best_flat = j*K + k
+    for candidate slot j and triangle lane k, -1 for a miss.  For any_hit,
+    best_flat is the 0/1 occlusion flag.
     """
-    del tri_ids
     nb, n_u = u_idx.shape
-    b = o_comp.shape[2]
-    if k is None:
-        k = soup.shape[2]
-    k32 = k == 32
-    c = (soup.shape[0] // 4 if k32 else soup.shape[0]) - 1
-    # k=32 packs 4 sub-clusters (lane groups) per chunk ROW; ch must be a
-    # multiple of 4 rows' worth (ch sub-clusters -> ch/4 concatenated
-    # 128-lane groups).  ch=16 matches the k=128/ch=4 math width (512
-    # lanes) with ~4x tighter candidates — the r5 wide-chunk layout.
-    if k32:
-        ch = max(4, (min(chunk, n_u) // 4) * 4)
-    else:
-        ch = min(chunk, n_u)
-    # Contract: whole chunks only.  Tail slots of a partial chunk would
-    # clamp to (and refetch) the LAST real candidate; if that duplicate won,
-    # the winner decode (flat // k in ops/blocktrace.py) would read past the
-    # block's candidate list.  Callers pad with the sentinel cluster.
-    if n_u % ch != 0:
-        raise ValueError(f"candidate count {n_u} must be a multiple of the "
-                         f"DMA chunk {ch}; pad u_idx with the sentinel")
-    if n_valid is None:
-        n_valid = jnp.sum(u_idx < c, axis=1).astype(jnp.int32)
-    if entry is None:
-        entry = jnp.zeros((nb, n_u), jnp.float32)
-    # Ship only each chunk's first (= nearest) candidate entry: the early
-    # exit reads entries at chunk boundaries, and SMEM prefetch space is
-    # the scarce resource at large U.
-    entry_c = entry[:, ::ch]
-
-    kernel = functools.partial(_mt_kernel_body, n_u=n_u, k=k, ch=ch,
-                               t_min=t_min, any_hit=any_hit, k32=k32)
-    ray_spec = pl.BlockSpec((1, 1, b), lambda g, *_: (g, 0, 0),
-                            memory_space=pltpu.VMEM)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(nb,),
-        in_specs=[
-            ray_spec, ray_spec, ray_spec,   # o components
-            ray_spec, ray_spec, ray_spec,   # d components
-            ray_spec,                        # t_max
-            pl.BlockSpec(memory_space=pltpu.ANY),   # soup (HBM)
-        ],
-        out_specs=[
-            pl.BlockSpec((1, 1, b), lambda g, *_: (g, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, b), lambda g, *_: (g, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, ch * 16, 128) if k32 else (2, 16, ch * k),
-                       jnp.float32),
-            pltpu.SemaphoreType.DMA((2, ch)),
-        ],
-    )
-    r3 = lambda x: x.reshape(nb, 1, b)
+    b = o.shape[1]
+    k = soup.shape[2]
+    r = min(rays_per_program, b)
+    kt = min(k_tile, k)
+    if b % r or k % kt:
+        raise ValueError(f"ray block {b} / cluster width {k} must be "
+                         f"multiples of the tile {r} x {kt}")
+    n = nb * b
+    kernel = functools.partial(
+        _kernel, n_u=n_u, k=k, kt=kt, tiles_per_block=b // r, t_min=t_min,
+        any_hit=any_hit, early_exit=early_exit)
+    # Under shard_map the outputs vary over the mesh axes the inputs do.
+    vma = frozenset().union(*(jax.typeof(x).vma
+                              for x in (u_idx, n_valid, entry, o, d, t_max)))
+    tile = pl.BlockSpec((r,), lambda p: (p,))
+    flat = lambda x: x.reshape(n)
     best_t, best_flat = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((nb, 1, b), jnp.float32),
-            jax.ShapeDtypeStruct((nb, 1, b), jnp.int32),
-        ],
+        grid=(n // r,),
+        in_specs=[pl.no_block_spec] * 3 + [tile] * 7 + [pl.no_block_spec],
+        out_specs=[tile, tile],
+        out_shape=[jax.ShapeDtypeStruct((n,), jnp.float32, vma=vma),
+                   jax.ShapeDtypeStruct((n,), jnp.int32, vma=vma)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=NUM_STAGES),
         interpret=interpret,
-    )(u_idx.reshape(-1), n_valid, entry_c.reshape(-1),
-      r3(o_comp[0]), r3(o_comp[1]), r3(o_comp[2]),
-      r3(d_comp[0]), r3(d_comp[1]), r3(d_comp[2]),
-      r3(t_max), soup)
+        name="block_trace_any_hit" if any_hit else "block_trace_closest",
+    )(u_idx.reshape(-1), n_valid, entry.reshape(-1),
+      flat(o[..., 0]), flat(o[..., 1]), flat(o[..., 2]),
+      flat(d[..., 0]), flat(d[..., 1]), flat(d[..., 2]), flat(t_max),
+      soup.reshape(-1))
     return best_t.reshape(nb, b), best_flat.reshape(nb, b)

@@ -6,10 +6,10 @@ Replaces the reference's vk::Sampler + combined-image-sampler descriptors
 glTF sampler are honored (the round-3 version ignored filters and had no
 mip chain).
 
-Performance shape (the whole point of this layout): XLA-TPU row gathers
-cost ~2-4 us per 262k rows *per gather op* regardless of row width, so a
-classic bilinear fetch (4 corner gathers + 1 metadata gather) is 5x the
-price of one gather.  Here every texel row of every mip level is stored
+Performance shape (the whole point of this layout): a ray-sized row gather
+costs about the same per gather op whatever the row width, so a classic
+bilinear fetch (4 corner gathers + 1 metadata gather) is 5x the price of
+one gather.  Here every texel row of every mip level is stored
 QUAD-PACKED — row (l, y, x) holds the 2x2 neighborhood
 [c(y,x) | c(y,x+1) | c(y+1,x) | c(y+1,x+1)] with the +1 wrap baked in at
 pack time — so:
@@ -37,7 +37,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 from ..scene.types import (FILTER_NEAREST, MIP_LINEAR, MIP_NONE,
                            TextureStack, WRAP_CLAMP, WRAP_MIRROR,

@@ -10,8 +10,8 @@ formulation the north star prescribes (BASELINE.json; SURVEY.md section 7
 
 Triangle vertices are gathered from `geometry` through `bvh.tri_order` at
 trace time so hits stay differentiable w.r.t. vertex positions (see
-accel/bvh.py).  This module is the correctness baseline; ops/pallas_trace.py
-is the tuned TPU kernel with the same contract.
+accel/bvh.py).  This module is the correctness baseline; the cluster
+tracer (ops/blocktrace.py) is the fast path for large scenes.
 """
 
 from __future__ import annotations

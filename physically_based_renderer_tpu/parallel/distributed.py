@@ -3,9 +3,9 @@
 The reference is a single-process, single-GPU program (one queue,
 `src/pbr_engine/core/pbr/core/GpuHandle.cpp:76-80`); its only "cluster"
 bootstrap is Vulkan instance/device creation (`GpuHandle.cpp:94-101`).  The
-TPU framework's analog is `jax.distributed.initialize`: one process per
-host, each seeing its local chips, with ICI/DCN collectives connecting
-them (SURVEY.md section 2.10 "Comm backend").
+framework's analog is `jax.distributed.initialize`: one process per host,
+each seeing its local devices, with XLA's collectives connecting them
+(SURVEY.md section 2.10 "Comm backend").
 
 Usage (one call, before any backend touch):
 
@@ -13,9 +13,8 @@ Usage (one call, before any backend touch):
     distributed.ensure_initialized()          # no-op single-process
     mesh = distributed.global_mesh()          # 1-D mesh over ALL chips
 
-On Cloud TPU pods the coordinator address / process count / process id are
-discovered from the TPU metadata by JAX itself; elsewhere they come from
-the standard env vars (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
+The coordinator address / process count / process id come from the
+standard env vars (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
 JAX_PROCESS_ID) or explicit arguments.
 """
 
@@ -74,9 +73,9 @@ def global_mesh(axis_name: str = "tiles") -> Mesh:
 
 def hosts_chips_mesh(tile_axis: str = "tiles",
                      spp_axis: str = "spp") -> Mesh:
-    """2-D (hosts, chips-per-host) mesh: image tiles across hosts (DCN),
-    spp across each host's chips (ICI) — collectives ride the fast axis
-    for the per-sample psum, the slow axis only for film assembly."""
+    """2-D (hosts, devices-per-host) mesh: image tiles across hosts, spp
+    across each host's devices — the per-sample psum stays on the fast
+    intra-host links, the slow axis carries only film assembly."""
     n_hosts = jax.process_count()
     per_host = jax.local_device_count()
     devs = np.asarray(jax.devices()).reshape(n_hosts, per_host)

@@ -5,12 +5,11 @@ device's bounce workload diverges — a sky-heavy tile finishes its live
 rays early while a geometry-heavy tile keeps full blocks busy.  Because
 XLA demands static shapes, the exchange is a STATIC symmetric rotation:
 every shard ships the same-size tail SLAB of its (detached) rays one step
-around the ring over ICI (`jax.lax.ppermute`), traces the received slab
+around the ring (`jax.lax.ppermute`), traces the received slab
 alongside its own head rays, and ships the slab's results back with the
 inverse rotation.  Expected live-lane load evens out across shards
 whenever occupancy is uncorrelated with shard index; a dynamic quota would
-require dynamic shapes and is exactly what the TPU programming model
-trades away.
+require dynamic shapes, which XLA's programming model trades away.
 
 Ray tracing is a pure per-ray function, so the rotation is semantically
 invisible: results return in the caller's order and equal the local trace

@@ -1,4 +1,4 @@
-"""Multi-device sharding: image-tile data parallelism over a TPU mesh.
+"""Multi-device sharding: image-tile data parallelism over a device mesh.
 
 The reference is strictly single-device (one Vulkan queue,
 `src/pbr_engine/core/pbr/core/GpuHandle.cpp:76-80`; SURVEY.md section 2.10).
@@ -12,7 +12,7 @@ This module is the new distributed backend the north star requires:
   * film assembly = out_specs row-sharding (an all_gather only materializes
     if a consumer needs the full image);
   * gradient all-reduce = psum over the mesh inside the backward of
-    shard_map, riding ICI (grad/ wires this into inverse rendering).
+    shard_map (grad/ wires this into inverse rendering).
 
 Shard-invariance: per-ray RNG keys derive from GLOBAL pixel ids
 (core/rng.py), so an N-device render is bitwise the single-device render.
@@ -20,8 +20,7 @@ Shard-invariance: per-ray RNG keys derive from GLOBAL pixel ids
 SURVEY section 2.10 row map (where each parallelism analog lives):
   DP (rays/spp)      -> render_sharded / render_sharded_2d (spp axis psum)
   TP-analog (tiles)  -> render_sample_sharded row sharding
-  PP-analog          -> double-buffered cluster DMA inside the Pallas
-                        tracer (ops/pallas_trace.py) + scan frame batching
+  PP-analog          -> scan frame batching
   SP/CP-analog       -> the path-depth loop is sequential by nature
                         (RR-bounded); its per-lane state never leaves the
                         device — "queue segments" are the per-bounce trace
@@ -80,7 +79,7 @@ def render_sample_sharded(scene: Scene, camera: Camera, key: jax.Array,
 
     exchange=True routes the integrator's block-tracer calls through the
     ppermute ring ray exchange (parallel/exchange.py): each shard rotates a
-    fixed tail slab of its rays one ring step over ICI, evening live-lane
+    fixed tail slab of its rays one ring step, evening live-lane
     load across tiles of unequal occupancy.  Semantically invisible
     (results return in caller order; tested against exchange=False).
 
@@ -151,7 +150,7 @@ def render_sharded_2d(scene: Scene, camera: Camera, key: jax.Array,
     """Render over a (tiles, spp) mesh with a PLACED psum over the spp axis.
 
     Each device renders (height/n_tiles rows) x (spp/n_spp samples); sample
-    films all-reduce over the spp axis (ICI), rows assemble by out_specs.
+    films all-reduce over the spp axis, rows assemble by out_specs.
     Per-ray RNG keys derive from (global sample index, global pixel id), so
     the result is bitwise `render()` up to f32 psum-reduction order.
     """
@@ -179,7 +178,7 @@ def render_sharded_2d(scene: Scene, camera: Camera, key: jax.Array,
         init = jnp.zeros((rows, cfg.width, 3), jnp.float32)
         init = jax.lax.pcast(init, (TILE_AXIS, SPP_AXIS), to="varying")
         hdr, _ = jax.lax.scan(body, init, local)
-        # Placed all-reduce of sample sums over the spp axis (rides ICI).
+        # Placed all-reduce of sample sums over the spp axis.
         return jax.lax.psum(hdr, SPP_AXIS)
 
     fn = shard_map(tile_fn, mesh=mesh,

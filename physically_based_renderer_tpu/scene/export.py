@@ -8,7 +8,6 @@ the round-trip oracle for the importer tests.
 
 from __future__ import annotations
 
-import io
 import json
 import struct
 from pathlib import Path
@@ -62,7 +61,7 @@ def export_glb(path: str | Path, g: graph_mod.SceneGraph,
                materials: Materials,
                textures: TextureStack | None = None) -> None:
     """Write a .glb with the graph's meshes/nodes and the material table."""
-    from PIL import Image
+    from ..core import png
 
     bw = _BinWriter()
     js: dict = {
@@ -90,9 +89,7 @@ def export_glb(path: str | Path, g: graph_mod.SceneGraph,
                 rgb = _linear_to_srgb_np(rgb)
             rgba = np.concatenate([rgb, tex[..., 3:4]], axis=-1)
             u8 = (np.clip(rgba, 0, 1) * 255 + 0.5).astype(np.uint8)
-            buf = io.BytesIO()
-            Image.fromarray(u8).save(buf, format="PNG")
-            view = bw.add(buf.getvalue())
+            view = bw.add(png.encode(u8))
             js["images"].append({"bufferView": view, "mimeType": "image/png"})
             js["samplers"].append({
                 "wrapS": _WRAP_TO_GL[int(wraps[i, 0])],

@@ -19,7 +19,8 @@ semantics where they matter and strictly more capability:
     (factors + all four texture slots, all optional), emissive (incl.
     KHR_materials_emissive_strength), KHR_materials_specular.
   * Sampler wrap modes (`Asset.cpp:103-120`), image sources URI/bufferView/
-    data-URI (`Asset.cpp:55-101`), PNG/JPEG via PIL (stb_image analog).
+    data-URI (`Asset.cpp:55-101`), PNG in numpy, JPEG via optional Pillow
+    (stb_image analog).
 
 Everything is host-side numpy; the resulting Scene pytree is staged in one
 device_put (scene.types.upload_scene).
@@ -37,6 +38,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..core import png
 from . import graph as graph_mod
 from .types import (DirectionalLight, EnvMap, FILTER_LINEAR, FILTER_NEAREST,
                     Materials, MIP_LINEAR, MIP_NEAREST, MIP_NONE, Scene,
@@ -212,9 +214,8 @@ def read_accessor(doc: Document, acc_idx: int) -> np.ndarray:
 
 def decode_image(doc: Document, img_idx: int) -> np.ndarray:
     """Decode a glTF image -> u8 RGBA [H,W,4] (stb 'forced RGBA8' parity,
-    LoadImage.cpp:61-63)."""
-    from PIL import Image
-
+    LoadImage.cpp:61-63).  8-bit PNGs decode in numpy (core/png.py); JPEG
+    and other formats need Pillow, imported only then."""
     img = doc.json["images"][img_idx]
     if "uri" in img:
         uri = img["uri"]
@@ -226,8 +227,30 @@ def decode_image(doc: Document, img_idx: int) -> np.ndarray:
         raw = read_buffer_view(doc, img["bufferView"])
     else:
         raise GltfError(f"image {img_idx} has neither uri nor bufferView")
+    if raw[:8] == png.SIGNATURE:
+        try:
+            return png.to_rgba(png.decode(raw))
+        except png.UnsupportedPNG:
+            pass
+    try:
+        from PIL import Image
+    except ImportError:
+        raise GltfError(
+            f"image {img_idx} is not an 8-bit PNG; decoding it needs Pillow, "
+            f"which is not installed") from None
     with Image.open(io.BytesIO(raw)) as im:
         return np.asarray(im.convert("RGBA"), dtype=np.uint8)
+
+
+def _downscale(im: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    """Area-average resize of u8 [H,W,C] to [nh,nw,C] (nh <= H, nw <= W)."""
+    h, w = im.shape[:2]
+    rows = np.add.reduceat(im.astype(np.float64),
+                           (np.arange(nh) * h) // nh, axis=0)
+    rows /= np.diff(np.append((np.arange(nh) * h) // nh, h))[:, None, None]
+    cols = np.add.reduceat(rows, (np.arange(nw) * w) // nw, axis=1)
+    cols /= np.diff(np.append((np.arange(nw) * w) // nw, w))[None, :, None]
+    return (cols + 0.5).astype(np.uint8)
 
 
 def _srgb_to_linear_np(c: np.ndarray) -> np.ndarray:
@@ -308,12 +331,9 @@ def build_texture_stack(doc: Document, max_dim: int = 2048
             im = decode_image(doc, src)
             h, w = im.shape[:2]
             if max(h, w) > max_dim:  # downscale huge textures
-                from PIL import Image
                 scale = max_dim / max(h, w)
                 nh, nw = max(1, int(h * scale)), max(1, int(w * scale))
-                pil = Image.fromarray(im).resize((nw, nh),
-                                                 Image.Resampling.LANCZOS)
-                im = np.asarray(pil, dtype=np.uint8)
+                im = _downscale(im, nh, nw)
             images[src] = im
         im = images[src].astype(np.float32) / 255.0
         if ti in srgb_use:

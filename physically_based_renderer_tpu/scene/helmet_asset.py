@@ -20,6 +20,8 @@ so golden image statistics are lockable.
 
 from __future__ import annotations
 
+import hashlib
+import json
 import os
 from pathlib import Path
 
@@ -311,25 +313,41 @@ def build_helmet_graph(scale_tris: float = 1.0):
 
 
 def author_helmet_glb(path: str | Path, scale_tris: float = 1.0) -> Path:
-    """Write the helmet .glb (export_glb) and return the path."""
+    """Write the helmet .glb (export_glb) and return the path.  The file is
+    written under a temporary name and renamed, so a concurrent reader never
+    sees a partial asset."""
     from .export import export_glb
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     g, m, stack = build_helmet_graph(scale_tris)
-    export_glb(path, g, m, stack)
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    export_glb(tmp, g, m, stack)
+    os.replace(tmp, path)
     return path
+
+
+# Bump whenever the authored asset or the .glb writer changes: it is part
+# of the cache key, so a stale asset is never ingested.
+ASSET_FORMAT = 2
+DEFAULT_CACHE_DIR = Path(__file__).resolve().parents[2] / ".assets"
+
+
+def helmet_asset_name(scale_tris: float = 1.0) -> str:
+    """Cache file name: a hash of the authoring parameters + format."""
+    key = json.dumps({"asset": "helmet", "format": ASSET_FORMAT,
+                      "scale_tris": float(scale_tris)}, sort_keys=True)
+    return f"helmet_{hashlib.sha256(key.encode()).hexdigest()[:16]}.glb"
 
 
 def load_helmet_scene(cache_dir: str | Path | None = None,
                       scale_tris: float = 1.0) -> Scene:
     """Author (cached) + ingest the helmet through the FULL .glb pipeline,
-    attach the HDR environment.  This is the bench `helmet` scene."""
+    attach the HDR environment.  This is the bench `helmet` scene.  The
+    default cache is `.assets/` in the checkout (git-ignored)."""
     from . import gltf as gltf_mod
     from .procedural import make_gradient_sky
-    if cache_dir is None:
-        cache_dir = os.environ.get("PBR_ASSET_CACHE", "/tmp/pbr_assets")
-    name = f"helmet_{scale_tris:g}.glb"
-    path = Path(cache_dir) / name
+    path = Path(cache_dir or DEFAULT_CACHE_DIR) / helmet_asset_name(
+        scale_tris)
     if not path.exists():
         author_helmet_glb(path, scale_tris)
     scene, _graph, _cam = gltf_mod.load(path)

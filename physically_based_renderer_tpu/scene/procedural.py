@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from .types import (DirectionalLight, EnvMap, Geometry, Materials, Scene,
-                    TextureStack, make_scene)
+                    make_scene)
 
 
 def _geometry_from_arrays(positions, indices, tri_material, uvs=None,
@@ -111,11 +111,9 @@ def make_cornell_box(light_scale: float = 1.0,
 
     textured=True attaches the albedo + roughness textures BASELINE config
     #3 specifies: a checker albedo map on the white surfaces and a
-    metallic-roughness map (G = roughness ramp) on the GGX block.  At the
-    default tex_size=8 (MIP_NONE) the textures stay SMEM-resident for the
-    fused megakernel (ops/fused.py) while exercising the real bilinear
-    fetch path in both kernels; tex_size=256 is the realistic-texture tier
-    (VMEM-indexed fetches in the megakernel, `cornell_tex256` config).
+    metallic-roughness map (G = roughness ramp) on the GGX block.  The
+    default tex_size=8 (MIP_NONE) exercises the real bilinear fetch path;
+    tex_size=256 is the realistic-texture tier (`cornell_tex256` config).
     """
     verts: list = []
     faces: list = []
@@ -298,32 +296,3 @@ def make_gradient_sky(height: int = 64, width: int = 128,
         sun_radiance, np.float32)
     return build_env_tables((base + sun).astype(np.float32))
 
-
-def make_helmet_class_scene(rings: int = 224, sectors: int = 224,
-                            bump: float = 0.06, seed: int = 0) -> Scene:
-    """BASELINE config #4 stand-in: ~100k-triangle displaced, textured,
-    metallic-roughness sphere under an HDR environment (the repo's
-    DamagedHelmet-class asset is absent — `.MISSING_LARGE_BLOBS`)."""
-    g = make_uv_sphere(radius=1.0, rings=rings, sectors=sectors)
-    # low-frequency displacement for an irregular silhouette
-    p = np.asarray(g.positions)
-    n = np.asarray(g.normals)
-    disp = (np.sin(5.0 * p[:, 0]) * np.sin(4.0 * p[:, 1])
-            * np.sin(6.0 * p[:, 2]))
-    p = p + n * (bump * disp)[:, None].astype(np.float32)
-    g = g.replace(positions=p.astype(np.float32),
-                  normals=_vertex_normals(p.astype(np.float32),
-                                          np.asarray(g.indices)))
-
-    albedo = make_checker_texture(256, 12, (0.7, 0.45, 0.2), (0.2, 0.2, 0.25))
-    # MR texture: G=roughness varies, B=metallic varies
-    mr = np.zeros((256, 256, 4), np.float32)
-    yy, xx = np.mgrid[0:256, 0:256] 
-    mr[..., 1] = 0.15 + 0.7 * (xx / 255.0)     # roughness ramp
-    mr[..., 2] = (yy > 128).astype(np.float32)  # metallic split
-    mr[..., 3] = 1.0
-    tex = TextureStack.from_images([albedo, mr])
-    m = Materials.default(1)
-    m = m.replace(base_color_tex=np.asarray([0], np.int32),
-                  metallic_roughness_tex=np.asarray([1], np.int32))
-    return make_scene(g, m, textures=tex, env=make_gradient_sky())

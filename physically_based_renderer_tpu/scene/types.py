@@ -1,6 +1,6 @@
 """Scene representation: flat structure-of-arrays pytrees.
 
-TPU-native replacement for the reference's retained scene objects:
+Replacement for the reference's retained scene objects:
   * Mesh/PrimitiveSpan (one interleaved VB + u16 IB per mesh,
     `src/pbr_engine/engine/pbr/Mesh.hpp:15-42`)  ->  ONE global SoA geometry
     arena with per-triangle material ids (AoS->SoA: interleaved MeshVertex
@@ -10,12 +10,12 @@ TPU-native replacement for the reference's retained scene objects:
     plumbs only baseColorFactor, `gltf/Asset.cpp:142-146`; the north star
     requires metallic/roughness/emissive too).
   * Texture/sampler objects  ->  a padded texture stack array + per-texture
-    metadata (true size, wrap mode), sampled by Pallas/jnp gather.
+    metadata (true size, wrap mode), sampled by jnp gather.
   * Scene graph (Scene/Node/Transform, `Scene.hpp:19-83`)  ->  kept host-side
     in scene/graph.py; flattening bakes world transforms into the arena
     (fastgltf DecomposeNodeMatrices analog, `gltf/Loader.cpp:18-21`).
 
-Everything here is a flax.struct pytree of device arrays: it jits, shards
+Everything here is a core.struct pytree of device arrays: it jits, shards
 (replicated per host, SURVEY.md section 2.10), donates, and differentiates
 (gradients flow into material factors, texture texels, emitter radiance, and
 vertex positions — the inverse-rendering parameter set).
@@ -26,7 +26,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 # Texture wrap modes (glTF sampler wrapS/T; reference loadSampler
 # `gltf/Asset.cpp:103-120` maps the same enum onto vk::SamplerAddressMode).
@@ -245,8 +245,7 @@ class EnvMap:
     marginal_cdf: jnp.ndarray     # f32[H] inclusive CDF over rows
     pdf: jnp.ndarray              # f32[H, W] solid-angle pdf of each texel
     # Walker alias table over the texel distribution: O(1) sampling with 2
-    # gathers instead of a 2-D CDF binary search (~13 dependent gathers —
-    # measured 19 ms -> ~2 ms per 262k-ray NEE pass on v5e).
+    # gathers instead of a 2-D CDF binary search (~13 dependent gathers).
     alias_prob: jnp.ndarray       # f32[H*W] acceptance threshold per slot
     alias_idx: jnp.ndarray        # i32[H*W] alias texel per slot
 
@@ -267,8 +266,8 @@ class Scene:
     env: EnvMap | None
     # Optional acceleration structures; None => brute force.  Presence is
     # static (part of the pytree treedef), so integrators specialize at
-    # trace time.  `clusters` (accel/clusters.py, the TPU-native ray-stream
-    # path) wins over `bvh` (accel/bvh.py XLA stack walk) when both are set.
+    # trace time.  `clusters` (accel/clusters.py, the ray-stream path) wins
+    # over `bvh` (accel/bvh.py XLA stack walk) when both are set.
     bvh: object | None = None
     clusters: object | None = None
     # Static (non-pytree) flags: let integrators skip whole light paths at
@@ -286,8 +285,7 @@ class Scene:
     tex_slots: tuple = struct.field(pytree_node=False,
                                     default=(False, False, False, False))
     # True iff every vertex normal equals its triangle's face normal
-    # (checked at build).  Lets the fused megakernel (ops/fused.py) skip
-    # barycentric normal interpolation statically.
+    # (checked at build).
     flat_normals: bool = struct.field(pytree_node=False, default=False)
 
 
@@ -303,7 +301,7 @@ def with_bvh(scene: "Scene", leaf_size: int | None = None) -> "Scene":
 
 
 def with_clusters(scene: "Scene", k: int | None = None) -> "Scene":
-    """Build the TPU-native cluster grid (ray-stream tracer) and attach."""
+    """Build the cluster grid (ray-stream tracer) and attach."""
     from ..accel.clusters import CLUSTER_K, pack_soup_host
     from ..accel.native import build_clusters_fast
     grid = build_clusters_fast(np.asarray(scene.geometry.positions),

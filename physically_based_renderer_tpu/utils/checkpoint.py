@@ -1,9 +1,9 @@
 """Checkpoint/resume for inverse rendering (orbax).
 
 The reference persists nothing (SURVEY.md section 5 "Checkpoint/resume:
-None"); the TPU build adds it for the inverse-rendering config — optimizer
-state + recovered parameters survive preemption, the standard large-scale
-TPU training requirement.
+None"); this framework adds it for the inverse-rendering config —
+optimizer state + recovered parameters survive preemption.  orbax is
+imported lazily, only by checkpointing jobs.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The reference's "config system" is argv position 1 + one flag
 (`src/gltf_viewer/Main.cpp:15-27`) with everything else compile-time
-constants (SURVEY.md section 5).  The TPU build needs the BASELINE.json
+constants (SURVEY.md section 5).  This renderer needs the BASELINE.json
 configs selectable by name, so this is a real (dataclass) config layer.
 """
 
@@ -19,11 +19,10 @@ class SceneSpec:
     """How to obtain the scene + camera for a named config."""
 
     builder: str               # 'triangle' | 'cornell' | 'cornell_ggx' |
-    #                            'helmet' | 'gltf'
+    #                            'helmet_glb' | 'gltf'
     camera_position: tuple = (0.0, 1.0, 3.9)
     camera_target: tuple = (0.0, 1.0, 0.0)
     fov_y: float = 0.95
-    cluster_k: int | None = None   # None = accel/clusters.CLUSTER_K
     extra: dict = dataclasses.field(default_factory=dict)
 
 
@@ -74,30 +73,15 @@ _register(BenchConfig(
                 "materials, 4 mixed-size textures incl. normal + emissive "
                 "maps) with HDR environment map, authored+ingested through "
                 "the full glTF pipeline (scene/helmet_asset.py)",
-    # block_size=512 measured best on v5e (269 vs 277 ms/spp at 256);
-    # k=128 clusters beat k=32 wide-chunks here (PERF.md r5 study).
     render=RenderConfig(width=512, height=512, spp=4, max_bounces=3,
                         block_size=512),
     scene=SceneSpec(builder="helmet_glb", camera_position=(0.0, 0.1, 3.0),
                     camera_target=(0.0, 0.0, 0.0), fov_y=1.0),
 ))
 _register(BenchConfig(
-    name="helmet_proc",
-    description="round-4 helmet stand-in (procedurally displaced textured "
-                "sphere + HDR env), kept for perf A/B against BENCH_r04",
-    # Measured on v5e (tools/prof_k32.py): k=128 clusters edge out the
-    # k=32 lane-group variant here (9.0 vs 11.9 ms/closest pass) — the
-    # kernel is chunk-iteration-bound and finer candidates double the
-    # chunk count; the k=32 path stays available via SceneSpec.cluster_k.
-    render=RenderConfig(width=512, height=512, spp=4, max_bounces=3),
-    scene=SceneSpec(builder="helmet", camera_position=(0.0, 0.0, 3.0),
-                    camera_target=(0.0, 0.0, 0.0), fov_y=1.0),
-))
-_register(BenchConfig(
     name="cornell_tex256",
-    description="realistic-texture tier (VERDICT r4 #2): cornell_ggx with "
-                "256x256 albedo + metallic-roughness maps — too big for "
-                "SMEM select-loops, exercises indexed texel fetches",
+    description="realistic-texture tier: cornell_ggx with 256x256 albedo "
+                "+ metallic-roughness maps, exercises indexed texel fetches",
     render=RenderConfig(width=512, height=512, spp=4, max_bounces=4),
     scene=SceneSpec(builder="cornell_ggx",
                     extra={"roughness": 0.25, "tex_size": 256}),
@@ -131,8 +115,6 @@ def build_scene(spec: SceneSpec):
             roughness=spec.extra.get("roughness", 0.25),
             textured=True,
             tex_size=spec.extra.get("tex_size", 8))
-    elif b == "helmet":
-        scene = procedural.make_helmet_class_scene(**spec.extra)
     elif b == "helmet_glb":
         # The real binary-asset path: author (cached) -> export_glb ->
         # full scene/gltf.py ingest -> env attach (scene/helmet_asset.py).
@@ -141,13 +123,13 @@ def build_scene(spec: SceneSpec):
     elif b == "gltf":
         from ..scene import gltf as gltf_mod
         scene, _, camera = gltf_mod.load(spec.extra["path"])
-        return with_clusters(scene, k=spec.cluster_k), camera
+        return with_clusters(scene), camera
     else:
         raise ValueError(f"unknown scene builder {b!r}")
     # Always attach the cluster grid: tiny scenes become a single padded
-    # cluster and the Pallas tracer degenerates to VMEM-resident brute
-    # force, which is exactly right for them.
-    scene = with_clusters(scene, k=spec.cluster_k)
+    # cluster and the block tracer degenerates to dense brute force, which
+    # is exactly right for them.
+    scene = with_clusters(scene)
     camera = Camera.make(position=spec.camera_position,
                          target=spec.camera_target, fov_y=spec.fov_y)
     return scene, camera

@@ -13,7 +13,7 @@ import json
 import logging
 import time
 
-logger = logging.getLogger("pbr_tpu")
+logger = logging.getLogger("pbr")
 if not logger.handlers:
     _h = logging.StreamHandler()
     _h.setFormatter(logging.Formatter(

@@ -140,28 +140,19 @@ def test_bvh_differentiable_wrt_positions():
     np.testing.assert_allclose(float(grad), float(fd), rtol=1e-2)
 
 
-import pytest
-
-
-@pytest.mark.parametrize("chunk", [4, 16])
-def test_k32_subcluster_tracer_matches_brute(chunk):
-    """K=32 lane-group variant layout (accel/clusters.pack_soup32 +
-    ops/pallas_trace k32 path) agrees with brute force (interpret mode).
-    chunk=16 is the r5 wide-chunk layout (4 concatenated lane groups)."""
-    import jax.numpy as jnp
-    from physically_based_renderer_tpu.ops.blocktrace import (
-        intersect_blocks_pallas)
-    from physically_based_renderer_tpu.ops.intersect import (
-        intersect_brute, occluded_brute)
-    from physically_based_renderer_tpu.scene.procedural import make_uv_sphere
+@pytest.mark.parametrize("k", [32, 128])
+def test_triton_tracer_matches_brute(k):
+    """The Triton block tracer (Pallas interpreter) agrees with brute force
+    on closest hit and on sorted any-hit, at cluster widths 32 and 128."""
+    from physically_based_renderer_tpu.ops.blocktrace import intersect_blocks
     from physically_based_renderer_tpu.scene.types import (Materials,
                                                            make_scene,
                                                            with_clusters)
 
     g = make_uv_sphere(radius=1.0, rings=20, sectors=20)
-    scene = with_clusters(make_scene(g, Materials.default(1)), k=32)
-    assert scene.clusters.k == 32
-    assert scene.clusters.soup.shape[1:] == (16, 128)   # variant layout
+    scene = with_clusters(make_scene(g, Materials.default(1)), k=k)
+    assert scene.clusters.k == k
+    assert scene.clusters.soup.shape[1:] == (9, k)
 
     rng = np.random.default_rng(1)
     n = 600
@@ -169,9 +160,9 @@ def test_k32_subcluster_tracer_matches_brute(chunk):
     d = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
     d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
 
-    h = intersect_blocks_pallas(scene.clusters, scene.geometry, o, d,
-                                t_min=1e-4, block=128, max_u=96,
-                                interpret=True, chunk=chunk)
+    h = intersect_blocks(scene.clusters, scene.geometry, o, d, t_min=1e-4,
+                         block=128, max_u=96, kernel="triton",
+                         interpret=True)
     v0, v1, v2 = scene.geometry.tri_vertices()
     hb = intersect_brute(o, d, v0, v1, v2, t_min=1e-4)
     t_p, t_b = np.asarray(h.t), np.asarray(hb.t)
@@ -180,60 +171,51 @@ def test_k32_subcluster_tracer_matches_brute(chunk):
     assert hit_match.all()
     assert (np.asarray(h.tri) == np.asarray(hb.tri)).all()
 
-    occ = intersect_blocks_pallas(scene.clusters, scene.geometry, o, d,
-                                  t_min=1e-4, t_max=3.0, any_hit=True,
-                                  block=128, max_u=96, interpret=True,
-                                  sort=True, chunk=chunk)
+    occ = intersect_blocks(scene.clusters, scene.geometry, o, d, t_min=1e-4,
+                           t_max=3.0, any_hit=True, block=128, max_u=96,
+                           sort=True, kernel="triton", interpret=True)
     ob = occluded_brute(o, d, v0, v1, v2, t_min=1e-4, t_max=3.0)
     assert (np.asarray(occ) == np.asarray(ob)).all()
 
 
-@pytest.mark.parametrize("chunk", [4, 16])
-def test_k32_partial_final_chunk_and_tiny_scene(chunk):
-    """Regressions: (a) a winner lying in a PARTIAL final chunk (real
-    clusters sharing a chunk with sentinel padding) must still be found —
-    the sentinel tiles must be all-zero, or their values corrupt the summed
-    lane-group assembly; (b) scenes with fewer than 4 sub-clusters must
-    pad the candidate list to the fixed chunk width, not crash."""
-    import jax.numpy as jnp
-    from physically_based_renderer_tpu.ops.blocktrace import (
-        intersect_blocks_pallas)
-    from physically_based_renderer_tpu.ops.intersect import intersect_brute
-    from physically_based_renderer_tpu.scene.procedural import (
-        make_random_tris, make_uv_sphere)
+@pytest.mark.parametrize("k", [32, 128])
+def test_triton_last_candidate_and_tiny_scene(k):
+    """Regressions: (a) a winner in a block's LAST candidate slot (the
+    candidate loop must run to n_valid, not stop a slot early); (b) scenes
+    with fewer clusters than the ray tile has lanes, and a ray block
+    smaller than the default tile."""
+    from physically_based_renderer_tpu.ops.blocktrace import intersect_blocks
     from physically_based_renderer_tpu.scene.types import (Materials,
                                                            make_scene,
                                                            with_clusters)
 
-    # (a) 159 tris -> C32 not a multiple of 4; rays aimed at every tri so
-    # some winner falls in the final partial chunk.
-    # Blocks see PER-BLOCK candidate counts that are rarely multiples of
-    # 4, so real clusters share final chunks with sentinel padding.
+    # (a) 159 tris; rays aimed at every tri so winners land in every
+    # candidate slot, including the last one of each block.
     g = make_random_tris(159, seed=3)
-    scene = with_clusters(make_scene(g, Materials.default(1)), k=32)
+    scene = with_clusters(make_scene(g, Materials.default(1)), k=k)
     v0, v1, v2 = scene.geometry.tri_vertices()
     centers = np.asarray((v0 + v1 + v2) / 3.0)
     o = jnp.asarray(centers + np.array([0, 0, 5.0], np.float32))
     d = jnp.asarray(np.tile(np.array([[0, 0, -1.0]], np.float32),
                             (len(centers), 1)))
-    h = intersect_blocks_pallas(scene.clusters, scene.geometry, o, d,
-                                t_min=1e-4, block=128, max_u=96,
-                                interpret=True, chunk=chunk)
+    h = intersect_blocks(scene.clusters, scene.geometry, o, d, t_min=1e-4,
+                         block=128, max_u=96, kernel="triton",
+                         interpret=True)
     hb = intersect_brute(o, d, v0, v1, v2, t_min=1e-4)
     t_p, t_b = np.asarray(h.t), np.asarray(hb.t)
     ok = np.isclose(t_p, t_b, rtol=1e-4, atol=1e-5) | (
         (t_p > 1e29) & (t_b > 1e29))
     assert ok.all()
 
-    # (b) tiny scene: 60-tri sphere -> fewer than 4 sub-clusters.
+    # (b) tiny scene: 60-tri sphere -> one or two clusters, 8-ray blocks.
     g2 = make_uv_sphere(radius=1.0, rings=5, sectors=6)
-    s2 = with_clusters(make_scene(g2, Materials.default(1)), k=32)
+    s2 = with_clusters(make_scene(g2, Materials.default(1)), k=k)
     assert s2.clusters.num_clusters < 4
     o2 = jnp.asarray(np.array([[0, 0, 3.0]] * 8, np.float32))
     d2 = jnp.asarray(np.tile(np.array([[0, 0, -1.0]], np.float32), (8, 1)))
-    h2 = intersect_blocks_pallas(s2.clusters, s2.geometry, o2, d2,
-                                 t_min=1e-4, block=8, max_u=96,
-                                 interpret=True, chunk=chunk)
+    h2 = intersect_blocks(s2.clusters, s2.geometry, o2, d2, t_min=1e-4,
+                          block=8, max_u=96, kernel="triton",
+                          interpret=True)
     v0b, v1b, v2b = s2.geometry.tri_vertices()
     hb2 = intersect_brute(o2, d2, v0b, v1b, v2b, t_min=1e-4)
     np.testing.assert_allclose(np.asarray(h2.t), np.asarray(hb2.t),

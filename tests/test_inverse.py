@@ -144,9 +144,9 @@ def test_refit_clusters_tracks_moved_vertices():
     np.testing.assert_allclose(np.asarray(grid.aabb_min)[:, 0],
                                np.asarray(scene.clusters.aabb_min)[:, 0]
                                + 2.0, atol=1e-5)
-    # Refit soup must match a fresh host pack of the moved geometry.
-    from physically_based_renderer_tpu.ops.blocktrace import pack_soup
-    soup_ref, _ = pack_soup(scene.clusters, moved)
+    # Refit soup must match a fresh pack of the moved geometry.
+    from physically_based_renderer_tpu.accel.clusters import pack_soup
+    soup_ref = pack_soup(scene.clusters, moved)
     np.testing.assert_allclose(np.asarray(grid.soup), np.asarray(soup_ref),
                                atol=1e-6)
 
